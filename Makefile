@@ -1,13 +1,13 @@
 # Convenience targets (see .github/workflows/ci.yml for the CI equivalent)
-PY ?= /opt/venv/bin/python
+PY ?= python
 
+# CPU suite; xdist's per-file workers (--dist loadfile) isolate the files
 test:
-	$(PY) scripts/run_tests.py -j2
+	$(PY) -m pytest tests/ -q -m 'not slow' -p xdist -n 6 --dist loadfile
 
-# the monolithic invocation intermittently hits an XLA:CPU fatal signal
-# under suite-level load on some hosts — scripts/run_tests.py is the gate
-test-monolithic:
-	$(PY) -m pytest tests -q
+# the GPU smoke run (needs a GPU; exits 2 without one)
+smoke:
+	$(PY) chip_smoke.py
 
 bench:
 	$(PY) bench.py
@@ -18,4 +18,4 @@ native:
 clean:
 	$(MAKE) -C native clean
 
-.PHONY: test bench native clean
+.PHONY: test smoke bench native clean

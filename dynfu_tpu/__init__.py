@@ -1,7 +1,7 @@
-"""dynfu_tpu — a TPU-native DynamicFusion engine (JAX / XLA / Pallas / pjit).
+"""dynfu_tpu — a DynamicFusion engine in JAX (XLA, GPU).
 
 A from-scratch re-design of the capabilities of swarth100/dynfu (C++/CUDA/Opt)
-for TPU hardware:
+as batched, jitted array programs:
 
 * depth frontend (dists / bilateral / pyramid / point+normal maps)   -> ops.imgproc
 * TSDF volume (integrate / raycast / extract)                        -> volume.tsdf

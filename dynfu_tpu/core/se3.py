@@ -12,7 +12,8 @@ import functools
 import jax
 import jax.numpy as jnp
 
-# 3x3 geometry matmuls must be exact float32: TPU MXU defaults to bf16 inputs.
+# 3x3 geometry matmuls must be exact float32: the default matmul precision may
+# round f32 operands (TF32 on a GPU).
 _mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 

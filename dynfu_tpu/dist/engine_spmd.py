@@ -15,7 +15,7 @@ Sharding layout (1-D mesh, axis "x"):
   the XLA SPMD partitioner, which materializes exactly the halo exchanges a
   hand-written ppermute would: a shifted-slice read like F[1:, ...] on a
   blocked array lowers to a CollectivePermute of the one boundary plane
-  over ICI. This is the TPU-first formulation of the reference-era
+  between neighbouring devices. This is the declarative form of the
   "halo exchange" — declare the layout, let the compiler place the
   collectives — and `tests/test_dist.py::test_sharded_engine_frame_matches`
   proves the stitched result is bit-identical to one device.
@@ -26,8 +26,8 @@ Sharding layout (1-D mesh, axis "x"):
   shard's vertices may reference any node.
 
 Provenance: the reference is single-process single-GPU (SURVEY §2 — no
-DP/TP/PP, transport is cudaMemcpy only); this layer is the capability the
-TPU build adds on top.
+DP/TP/PP, transport is cudaMemcpy only); this layer is the capability this
+build adds on top.
 """
 
 from __future__ import annotations
@@ -39,7 +39,6 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from dynfu_tpu.engine import dynfusion as dyn
-from dynfu_tpu.ops import pallas_config
 from dynfu_tpu.engine.params import DynFuParams
 from dynfu_tpu.solver import gn
 from dynfu_tpu.solver import se3 as se3_solver
@@ -58,87 +57,6 @@ def _shardings(mesh: Mesh):
     return blocked, repl, rows, vol_s, wf_s
 
 
-def _kernel_path(mesh: Mesh, dp: DynFuParams,
-                 interpret: bool) -> dyn.ShardKernels:
-    """The shard_map Pallas sections for the three hottest vertex stages,
-    composable INSIDE the sharded frame's jit (the missing piece round 3
-    left: the standalone wrappers in dist/shard_{warp,corr,gram}.py were
-    tested but never ran in the sharded frame, so multi-chip paid the
-    slower XLA formulations).
-
-    * warp — embarrassingly parallel over row-sharded vertices, node state
-      replicated: each device runs the fused kernel (ops/warp_pallas.py),
-      zero collectives.
-    * correspondence — queries row-sharded, warped point set replicated
-      (GSPMD inserts the one all-gather where the warp's row-sharded output
-      meets the replicated in_spec): each device runs the FULL tiered
-      x-window 1-NN incl. the graph-payload fetch. Per-query independence
-      makes the stitched result exactly the single-chip answer whenever the
-      per-shard tier capacities hold (dp capacities apply PER SHARD here —
-      strictly more rescue budget than one chip).
-    * Gram — per-device fused VMEM assembly over the row-sharded data rows
-      + ONE psum of (A, b): the Schur-style reduction over ICI.
-
-    `interpret` selects the Pallas interpreter (CPU virtual-mesh
-    validation) for warp/Gram; the correspondence sweep falls back to the
-    XLA formulation on CPU (the interpreter is prohibitively slow at sweep
-    sizes) — the kernels themselves are certified against the XLA
-    formulations by their single-chip tests.
-    """
-    from jax import shard_map
-
-    from dynfu_tpu.ops import knn, warp_pallas
-    from dynfu_tpu.solver import gram_pallas
-
-    rows, repl = P("x"), P()
-
-    def warp_fn(wf, cv, cn):
-        def local(cv, cn, pos, dqs, w, mask):
-            wp, wn, _, _ = warp_pallas.warp_fused_tpu(
-                cv, cn, pos, dqs, w, mask, k=wfield.KNN, blend="dqb",
-                tq=1024, interpret=interpret)
-            return wp, wn
-
-        fn = shard_map(local, mesh=mesh,
-                       in_specs=(rows, rows, repl, repl, repl, repl),
-                       out_specs=(rows, rows), check_vma=False)
-        return fn(cv, cn, wf.pos, wf.dqs, wf.w, wf.mask)
-
-    def corr_fn(live_v, wv, warped_mask, live_m, wf):
-        def local(q, qm, pts, pm, pos, dqs, w, nmask, count):
-            wf_local = wfield.WarpField(pos=pos, dqs=dqs, w=w, mask=nmask,
-                                        count=count)
-            # re-enable the Pallas dispatch inside the per-device body (the
-            # enclosing GSPMD trace runs under no_pallas); on CPU the
-            # backend check keeps the XLA sweep
-            with pallas_config.force_pallas():
-                return knn.nn1_gather_xwindow(
-                    q, pts, None, pm, qm,
-                    rescue=dp.corr_rescue, escalate=dp.corr_escalate,
-                    window_blocks=dp.corr_window_blocks,
-                    values_fn=dyn._graph_payload(wf_local, dp))
-
-        fn = shard_map(
-            local, mesh=mesh,
-            in_specs=(rows, rows, repl, repl, repl, repl, repl, repl, repl),
-            out_specs=(rows, rows), check_vma=False)
-        return fn(live_v, live_m, wv, warped_mask,
-                  wf.pos, wf.dqs, wf.w, wf.mask, wf.count)
-
-    def gram_fn(data_idx, data_w, s2, delta, D):
-        def local(di, dw, s2_, dl):
-            A, b = gram_pallas.data_normal_tpu(di, dw, s2_, dl, D,
-                                               interpret=interpret)
-            return jax.lax.psum(A, "x"), jax.lax.psum(b, "x")
-
-        fn = shard_map(local, mesh=mesh, in_specs=(rows, rows, rows, rows),
-                       out_specs=(repl, repl), check_vma=False)
-        return fn(data_idx, data_w, s2, delta)
-
-    return dyn.ShardKernels(warp_fn=warp_fn, corr_fn=corr_fn,
-                            gram_fn=gram_fn)
-
-
 def sharded_engine_frame(
     mesh: Mesh,
     dp: DynFuParams,
@@ -147,8 +65,6 @@ def sharded_engine_frame(
     strict_parity: bool = True,
     integrate_mode: str = "separable",
     with_mult: bool = False,
-    kernel_path: bool = False,
-    interpret: bool | None = None,
 ):
     """The engine's `_nonrigid_frame` jitted over `mesh`.
 
@@ -165,30 +81,17 @@ def sharded_engine_frame(
     """
     blocked, repl, rows, vol_s, wf_s = _shardings(mesh)
 
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    kern = _kernel_path(mesh, dp, interpret) if kernel_path else None
-
     def step(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm, pose,
              *mult):
-        # GSPMD cannot partition a pallas_call over sharded operands; the
-        # sharded trace forces the XLA formulations (which partition
-        # cleanly and are what test_dist certifies vs single-device).
-        # With kernel_path=True the three hottest vertex stages instead run
-        # their fused Pallas kernels per device via shard_map sections
-        # (`_kernel_path`), re-enabling the dispatch inside their bodies.
-        # the UNJITTED body: the inner jit's trace cache does not key on
-        # the pallas flag, so going through it could replay a
-        # pallas-containing jaxpr traced for single-chip use
-        with pallas_config.no_pallas():
-            return dyn._nonrigid_frame.__wrapped__(
-                vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
-                pose, dp=dp, intr=intr, config=config,
-                strict_parity=strict_parity,
-                integrate_mode=integrate_mode,
-                canonical_mult=mult[0] if mult else None,
-                kernels=kern,
-            )
+        # the UNJITTED body, so the sharded jit below partitions the whole
+        # frame as one program
+        return dyn._nonrigid_frame.__wrapped__(
+            vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
+            pose, dp=dp, intr=intr, config=config,
+            strict_parity=strict_parity,
+            integrate_mode=integrate_mode,
+            canonical_mult=mult[0] if mult else None,
+        )
 
     solve_proto = (se3_solver.Se3Stats(0, 0, 0, 0)
                    if (dp.solver_rotations and not strict_parity)
@@ -219,12 +122,11 @@ def sharded_fusion_frame(mesh: Mesh, dp: DynFuParams, intr,
     blocked, repl, rows, vol_s, wf_s = _shardings(mesh)
 
     def step(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm, pose):
-        with pallas_config.no_pallas():
-            return dyn._fusion_frame.__wrapped__(
-                vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
-                pose, dp=dp, intr=intr, config=config,
-                solve_enabled=solve_enabled,
-            )
+        return dyn._fusion_frame.__wrapped__(
+            vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
+            pose, dp=dp, intr=intr, config=config,
+            solve_enabled=solve_enabled,
+        )
 
     solve_proto = (se3_solver.Se3Stats(0, 0, 0, 0) if dp.solver_rotations
                    else gn.SolveStats(0, 0, 0, 0))

@@ -1,10 +1,10 @@
 """Multi-host runtime bootstrap.
 
 The reference is a single-process program; its closest analog is the CUDA
-device selection at startup (demo.cpp:155-160). For pod-slice runs, every
+device selection at startup (demo.cpp:155-160). For multi-host runs, every
 host process calls `init_distributed()` before touching any jax API that
-enumerates devices; afterwards `jax.devices()` spans the whole slice and the
-meshes built by `dist.spmd.make_mesh` cover all chips, with ICI collectives
+enumerates devices; afterwards `jax.devices()` spans every host and the
+meshes built by `dist.spmd.make_mesh` cover all devices, with collectives
 chosen by XLA.
 
 Typical launch (one process per host):

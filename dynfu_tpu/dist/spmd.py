@@ -2,12 +2,12 @@
 
 This layer has NO counterpart in the reference — dynfu is a single-process,
 single-GPU program (SURVEY §2: no DP/TP/PP, no NCCL/MPI; the only transport
-is cudaMemcpy). It is the capability the TPU build adds: scale DynamicFusion
-across a pod slice by
+is cudaMemcpy). It is the capability this build adds: scale DynamicFusion
+across several devices by
 
 * partitioning the TSDF volume along its x axis (NamedSharding P('x')) — the
   volumetric analog of tensor parallelism: integrate touches only local
-  blocks, raycast contracts across blocks (XLA inserts the psum over ICI),
+  blocks, raycast contracts across blocks (XLA inserts the psum),
 * sharding the vertex set across chips (data parallelism for the dense
   solve): each chip assembles its partial Gauss-Newton normal equations
   A_p = W_p^T S_p W_p, and GSPMD reduces them with one psum — the
@@ -15,8 +15,7 @@ across a pod slice by
 * replicating the (small) node state on every chip.
 
 Everything is expressed with jax.sharding annotations on ONE jit — no
-hand-written collectives; XLA chooses all_reduce/all_gather placement over
-ICI. `sharded_fusion_step` is the full per-frame step (preprocess ->
+hand-written collectives; XLA chooses all_reduce/all_gather placement. `sharded_fusion_step` is the full per-frame step (preprocess ->
 integrate -> raycast -> warp -> GN solve -> node state update), jittable
 over any 1-D device mesh, exercised on a virtual CPU mesh in tests and by
 __graft_entry__.dryrun_multichip.

@@ -43,9 +43,9 @@ class KinFuParams:
     icp_angle_thres: float = _deg2rad(30.0)
     icp_iter_num: Tuple[int, ...] = (10, 5, 4, 0)
     icp_assoc: str = "stencil"  # "stencil": bounded-window select
-    # association (rigid/icp.py _fetch_stencil — this chip's element
-    # gathers are ~1000x slower than the (2R+1)^2 shifted selects);
-    # "gather": the reference's exact texture-fetch semantics
+    # association (rigid/icp.py _fetch_stencil: (2R+1)^2 shifted selects
+    # instead of element gathers); "gather": the reference's exact
+    # texture-fetch semantics
     icp_stencil_radii: Tuple[int, ...] = (2, 3, 4, 6)  # per level,
     # coarse wider (they absorb the raw inter-frame motion; flows beyond
     # the radius drop out like out-of-image projections)
@@ -136,15 +136,20 @@ class DynFuParams:
     # correspondence queries whose x-window exactness certificate fails:
     # up to this many failures are re-swept with a 4x window (moving-edge
     # queries whose true NN sits a few cm away — farther than the base
-    # window's x-margin — certify there at ~1/10 the base sweep's cost)
-    corr_window_blocks: int = 1  # base-sweep window width in 4096-point
-    # blocks. The sweep is VPU-bound and costs ~Q*W, so narrower windows
-    # are faster; queries whose certificate fails in the narrow window
+    # window's x-margin — certify there)
+    corr_block: int = 1024  # correspondence query tile, and the granularity
+    # at which its point windows are placed (points)
+    corr_window_blocks: int = 4  # base-sweep window width in corr_block
+    # blocks: tiles of 1024 queries place their 4096-point windows at
+    # 1024-point granularity (with one 4096-point block the 512-cube sphere
+    # run failed ~15k certificates and dropped correspondences,
+    # scripts/knn_probe.py --part window). The sweep costs ~Q*W, so narrower
+    # windows are cheaper; queries whose certificate fails in the narrow window
     # (pole-cap x-slabs) escalate, stragglers hit the exact brute tier,
     # and only failures beyond BOTH capacities drop (counted, asserted
     # zero in the benchmarks). With the ~6x-deduplicated canonical a
     # 4096-point window spans ~24 voxels of x at the 512-cube workload —
-    # measured zero drops there (74.5 ms frame vs 88 at width 3).
+    # zero drops there.
     corr_rescue: int = 4096  # exact brute-force third-tier capacity for
     # queries still failing after escalation (dense x-slab geometries,
     # e.g. sphere pole caps, defeat any single x-window); rescued queries
@@ -310,8 +315,8 @@ class DynFuParams:
                 # every capacity below is paid in every op that touches
                 # the buffer, so each is sized to its MEASURED stable
                 # workload + headroom (the overflow counters are the
-                # undersizing signal). Stable-run figures from
-                # scripts/diag/diag_fusion_band.py @512, 16 frames:
+                # undersizing signal). Stable-run figures of a 16-frame
+                # 512-cube fusion run:
                 # band 384k->395k, nodes 439 + ~0 inserts/frame,
                 # canonical 39k unique verts.
                 #
@@ -332,8 +337,8 @@ class DynFuParams:
                 # least). 128 holds captured == n_band through 16 frames.
                 caps["fusion_col_budget"] = 128
                 # fusion consumes the re-extracted canonical at
-                # unique-vertex granularity too (r4 profile: gradient
-                # normals on the 248k soup were 234 ms alone). The
+                # unique-vertex granularity too (gradient normals on the
+                # 248k soup dominated the frame). The
                 # persistent canonical is much larger than the parity
                 # scene's 35k unique verts — the accumulated band's soup
                 # was SILENTLY overflowing the old 262k soup cap (measured
@@ -349,23 +354,21 @@ class DynFuParams:
                 # the default 0.03 the per-frame spin noise of weak-data rim
                 # nodes accumulates (warped error drifts 0.49 -> 10 mm over
                 # 15 frames; un-gated it CASCADES — nodes spin ~150°, verts
-                # fly, insertion follows them, see solver/se3.py max_update
-                # and scripts/diag/diag_fusion_band.py). At 0.3 the same
+                # fly, insertion follows them, see solver/se3.py
+                # max_update). At 0.3 the same
                 # run holds 0.37-0.42 mm warped / 1.5 mm canonical through
                 # 16 frames — the ≤1 mm BASELINE bar config.
                 caps["se3_rot_prior"] = 0.3
-                # relinearization count vs accuracy, measured on the
-                # 12-frame 512-cube fusion bench (round 5): 2 steps
-                # 0.441 mm warped / 168 ms frame, 1 step 0.459 mm /
-                # 146 ms — both far inside the ≤1 mm bar, and each step
-                # is a full Gram + assembly + PCG pass (the frame's
-                # largest stage), so the preset takes 1
+                # relinearization count vs accuracy on the 12-frame
+                # 512-cube fusion bench: 2 steps 0.441 mm warped, 1 step
+                # 0.459 mm — both far inside the ≤1 mm bar, and each step
+                # is a full Gram + assembly + PCG pass, so the preset
+                # takes 1
                 caps["se3_relinearize"] = 1
             return caps
         # correspondence failure-tier capacities also scale down with the
         # surface vertex count: the tiers run at full static capacity every
-        # frame whether or not any query failed (escalate alone is ~2 ms at
-        # 128-cube with the 512-cube default of 16384), and smaller volumes
+        # frame whether or not any query failed, and smaller volumes
         # have proportionally fewer certificate failures. corr_dropped==0
         # (asserted by the benchmarks) is the undersizing signal.
         if volume_dims >= 192:

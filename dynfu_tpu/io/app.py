@@ -57,7 +57,10 @@ def run_dataset(
     os.makedirs(out_dir, exist_ok=True)
 
     if params is None:
-        params = DynFuParams.default_params()
+        # buffer capacities scale with the volume (static shapes): the
+        # 128-cube defaults would silently truncate a 512-cube surface
+        params = DynFuParams(**DynFuParams.caps_for_volume(
+            volume_dims, fusion=(mode == "fusion")))
         first = meshio.load_depth_png(depths[0])
         h, w = first.shape
         kf = dataclasses.replace(
@@ -91,7 +94,8 @@ def run_dataset(
             engine._build_steps()
         print(f"resumed from {resume} at frame {start}")
     sampler = SampledScopeTime()
-    loader = DepthLoader(depths)  # native threaded decode when available
+    loader = DepthLoader(depths)
+    print(f"depth decoder: {loader.decoder}")
 
     for i in range(start, len(loader)):
         depth = loader[i]
@@ -159,6 +163,7 @@ def run_dataset_rigid(
     engine = KinFu(params)
     sampler = SampledScopeTime()
     loader = DepthLoader(depths)
+    print(f"depth decoder: {loader.decoder}")
     poses = []
     for i in range(len(loader)):
         with sampler:

@@ -1,13 +1,17 @@
 """ctypes bindings for the native threaded depth-frame loader.
 
 The native side (native/dynfu_loader.cpp) is the C++ runtime counterpart of
-the reference's dataset path (cv::imread per frame, demo.cpp:85-90): a
-libpng decoder behind a worker pool that keeps decoded frames ahead of the
-consumer, so host-side image decode overlaps device compute.
+the reference's dataset path (cv::imread per frame, demo.cpp:85-90): a PNG
+decoder behind a worker pool that keeps decoded frames ahead of the
+consumer, so host-side image decode overlaps device compute. It needs no
+PNG library and no zlib headers: it parses the chunks itself and inflates
+with zlib's uncompress() from libz.so.1, resolved at run time.
 
-Auto-builds the shared library on first use (g++, cached under
-~/.cache/dynfu_tpu); falls back to the pure-Python PIL loader when no
-toolchain is available.
+Builds the shared library on first use from the committed source into the
+git-ignored native/build/ (g++, the same command as native/Makefile), and
+rebuilds it when the source is newer. Without a C++ compiler the numpy PNG
+decoder (io/meshio.py) is used silently; a failed build, a failed load or a
+missing libz.so.1 warns with its reason before falling back to it.
 """
 
 from __future__ import annotations
@@ -15,42 +19,41 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import warnings
 from typing import List, Optional
 
 import numpy as np
 
-_REPO_NATIVE = os.path.join(os.path.dirname(__file__), "..", "..", "native")
+_REPO_NATIVE = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "native"))
 _LIB_NAME = "libdynfu_loader.so"
 
 
-def _cache_dir() -> str:
-    d = os.environ.get(
-        "DYNFU_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "dynfu_tpu"),
-    )
-    os.makedirs(d, exist_ok=True)
-    return d
-
-
 def _find_or_build_lib() -> Optional[str]:
-    src = os.path.abspath(os.path.join(_REPO_NATIVE, "dynfu_loader.cpp"))
-    prebuilt = os.path.abspath(os.path.join(_REPO_NATIVE, "build", _LIB_NAME))
-    if os.path.exists(prebuilt):
-        return prebuilt
+    src = os.path.join(_REPO_NATIVE, "dynfu_loader.cpp")
     if not os.path.exists(src):
         return None
-    out = os.path.join(_cache_dir(), _LIB_NAME)
+    out = os.path.join(_REPO_NATIVE, "build", _LIB_NAME)
     if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
         return out
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     try:
         subprocess.run(
             ["g++", "-O2", "-std=c++17", "-fPIC", "-shared", src, "-o", out,
-             "-lpng", "-lz", "-lpthread"],
-            check=True, capture_output=True, timeout=120,
-        )
-        return out
-    except (OSError, subprocess.SubprocessError):
+             "-lpthread", "-ldl"],
+            check=True, capture_output=True, text=True, timeout=120)
+    except FileNotFoundError:  # no C++ compiler
         return None
+    except subprocess.CalledProcessError as e:
+        why = e.stderr.strip()[-400:]
+        warnings.warn(f"native depth loader did not build ({why}); decoding "
+                      "PNGs with numpy", RuntimeWarning)
+        return None
+    except subprocess.TimeoutExpired:
+        warnings.warn("native depth loader build timed out; decoding PNGs "
+                      "with numpy", RuntimeWarning)
+        return None
+    return out
 
 
 _lib = None
@@ -63,7 +66,18 @@ def _load() -> Optional[ctypes.CDLL]:
     path = _find_or_build_lib()
     if path is None:
         return None
-    lib = ctypes.CDLL(path)
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError as e:
+        warnings.warn(f"native depth loader built but did not load ({e}); "
+                      "decoding PNGs with numpy", RuntimeWarning)
+        return None
+    lib.dfl_zlib_ready.restype = ctypes.c_int
+    lib.dfl_zlib_ready.argtypes = []
+    if not lib.dfl_zlib_ready():
+        warnings.warn("native depth loader found no libz.so.1 to inflate "
+                      "with; decoding PNGs with numpy", RuntimeWarning)
+        return None
     lib.dfl_open.restype = ctypes.c_void_p
     lib.dfl_open.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -101,8 +115,8 @@ class DepthLoader:
 
     Frames must be consumed roughly IN ORDER (the prefetch ring holds
     `queue_depth` decoded frames; seeking far backwards blocks). Falls back
-    to synchronous PIL decoding when the native library cannot be built, so
-    callers never need to branch.
+    to synchronous numpy decoding when the native library cannot be built,
+    so callers never need to branch.
     """
 
     def __init__(self, paths: List[str], queue_depth: int = 8, threads: int = 4):
@@ -121,6 +135,11 @@ class DepthLoader:
     @property
     def native(self) -> bool:
         return self._handle is not None
+
+    @property
+    def decoder(self) -> str:
+        return ("native (threaded prefetch)" if self.native
+                else "numpy (synchronous)")
 
     def __len__(self) -> int:
         return len(self.paths)

@@ -1,4 +1,4 @@
-"""Unique isosurface vertices by zero-crossing edge extraction (TPU, jitted).
+"""Unique isosurface vertices by zero-crossing edge extraction (jitted).
 
 Marching cubes emits a triangle SOUP: every cell re-emits the interpolated
 vertex of each of its sign-changing edges once per incident triangle, so the
@@ -25,11 +25,11 @@ DELIBERATE deviation (documented for the parity ledger): the solve sees
 each unique vertex ONCE, where the reference's soup weights each position
 by its triangle-reference count (1-12x, a marching-cubes triangulation
 artifact, not a modeling choice). Measured effect on the 512-cube tracking
-benchmark: median vertex error unchanged (see RESULTS.md); the exact-soup
+benchmark: median vertex error unchanged; the exact-soup
 path remains the default at <384-cube (`DynFuParams.corr_unique_edges`).
 
 Entirely bit-packed (ops/compaction.py): sign-change and incidence tests
-are word-parallel VPU ops over ceil(Z/32)-word columns, extraction reuses
+are word-parallel bit ops over ceil(Z/32)-word columns, extraction reuses
 the hierarchical column compaction, and per-edge endpoint values come from
 ONE bit-packed (F[z], F[z+1]) pair gather + one neighbor gather — ~2 gathers
 per edge vs marching cubes' 4 per cell.
@@ -100,9 +100,7 @@ def isosurface_edge_vertices(
     volume-frame, computed IN the extraction: the two endpoint LATTICE
     central differences (6 element gathers each) lerped by the
     interpolation fraction t, vs tsdf.extract_normals' 6 trilinear
-    samples = 48 gathers per query — element gathers are this TPU's
-    slowest op (~4x fewer; measured 145 ms -> ~30 ms on the 512-cube
-    fusion canonical). NaN outside [2, dims-2)³, matching
+    samples = 48 gathers per query (~4x fewer gathers). NaN outside [2, dims-2)³, matching
     extract_normals' boundary rule (tsdf_volume.cu:602-679).
 
     bitplanes: optional precomputed (pack_columns(tsdf < 0),
@@ -154,8 +152,7 @@ def isosurface_edge_vertices(
     if 0 < K <= 32:
         # SMALL per-column budgets (the sphere presets' edge_col_budget=8,
         # measured max 3 bits/column): the per-column rank-select + K
-        # unrolled LSB rounds stays ~2 ms cheaper at 512-cube than
-        # extract_bits, whose level-1 stamp scatter scales with the
+        # unrolled LSB rounds avoids extract_bits' cost, whose level-1 stamp scatter scales with the
         # 32x-packed WORD-activity mask (X*Y*3*nw/32 inputs). Column
         # capacity = max_edges (every active column holds >= 1 bit, so in
         # the no-drop regime n_cols <= n_edges); budget overflow surfaces
@@ -169,7 +166,7 @@ def isosurface_edge_vertices(
         # extract_bits): no per-column bit budget exists, so z-parallel
         # surfaces (the umbrella's wall/floor — whole z-columns of edge
         # bits) cost nothing extra. The budget-256 formulation paid
-        # budget x max_cols x nwords word-ops per frame here (round 5).
+        # budget x max_cols x nwords word-ops per frame here.
         # Capture is the ascending scan-order prefix either way, so the
         # two paths agree bit-for-bit whenever neither drops.
         flat_idx, n_total, n_captured = compaction.extract_bits(

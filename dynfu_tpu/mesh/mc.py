@@ -1,10 +1,10 @@
-"""Marching cubes on the TSDF volume (TPU, jitted).
+"""Marching cubes on the TSDF volume (jitted).
 
 Re-design of the reference's two-pass GPU marching cubes
 (src/kfusion/cuda/marching_cubes.cu, host driver
 src/kfusion/marching_cubes.cpp):
 
-reference                                   TPU formulation
+reference                                   this formulation
 -----------------------------------------   --------------------------------
 warp-ballot + atomicAdd voxel compaction    dense cube-index field + masked
 (getOccupiedVoxelsKernel, cu:79-141)        jnp.nonzero(size=cap) compaction
@@ -44,6 +44,24 @@ from dynfu_tpu.ops import compaction
 from dynfu_tpu.volume.tsdf import TsdfConfig, TsdfVolume
 
 MAX_TRIANGLES = 2_000_000  # default vertex-buffer capacity / 3
+
+
+def emit_triangles(tris, t_offsets, n_tris, max_tris: int):
+    """Scatter per-voxel triangles into the output stream.
+
+    tris (M, 5, 9): up to 5 triangles (9 floats) per voxel; t_offsets (M,)
+    the exclusive scan of n_tris (M,), the per-voxel triangle counts. Slot
+    j of voxel v lands at row t_offsets[v] + j when j < n_tris[v]; rows at
+    or past max_tris are dropped. Returns the (max_tris, 9) stream, zero
+    beyond the last written row. Emitting at triangle granularity writes 5
+    rows of 9 floats per voxel instead of 15 rows of 3."""
+    slot = jnp.arange(tris.shape[1], dtype=jnp.int32)[None, :]
+    tgt = jnp.where(slot < n_tris[:, None], t_offsets[:, None] + slot,
+                    max_tris)
+    out = jnp.zeros((max_tris + 1, tris.shape[2]), jnp.float32)
+    out = out.at[tgt.reshape(-1)].set(tris.reshape(-1, tris.shape[2]),
+                                      mode="drop")
+    return out[:max_tris]
 
 
 @functools.partial(jax.jit, static_argnames=("config", "max_voxels", "max_verts",
@@ -102,11 +120,10 @@ def marching_cubes(
     n_cells = (X - 1) * (Y - 1) * (Z - 1)
 
     if n_cells < (1 << 18):
-        # small volumes: dense cell field + direct masked compaction. The
-        # crossover to the bit-packed path is far below this (measured at
-        # 128-cube: direct 23.8 ms vs hierarchical 7.8 ms — nonzero's
-        # scatter cost scales with the dense cell count at ~7 ms per M
-        # cells); the threshold keeps tiny test volumes on the
+        # small volumes: dense cell field + direct masked compaction.
+        # nonzero's scatter cost scales with the dense cell count, so the
+        # bit-packed path below wins well under this threshold; the
+        # threshold keeps tiny test volumes on the
         # exact-by-construction path where compile time matters more than
         # run time.
         def corner(i):
@@ -132,10 +149,10 @@ def marching_cubes(
         vox_idx = jnp.nonzero(occ.reshape(-1), size=max_voxels,
                               fill_value=n_cells)[0]
     else:
-        # Large volumes: XLA's nonzero scatters one element per CELL
-        # (~950 ms for a 512-cube on this TPU), and even building a dense
-        # boolean cell field costs several 0.5 GB round trips to HBM. So
-        # occupancy is computed ENTIRELY in bit-packed form:
+        # Large volumes: XLA's nonzero scatters one element per CELL, and
+        # even building a dense boolean cell field costs several 0.5 GB
+        # round trips to device memory. So occupancy is computed ENTIRELY
+        # in bit-packed form:
         #
         #   1. one fused pass over tsdf/weight packs per-voxel-column
         #      `inside` (tsdf < 0) and `valid` (weight != 0) bits into
@@ -144,7 +161,7 @@ def marching_cubes(
         #   2. cell occupancy in word space: pairz(w) ANDs each bit with
         #      its z+1 neighbor (shift with cross-word carry), cell4 ANDs
         #      the four (x,y) corner columns; occupied = all-8-weighted
-        #      AND NOT all-inside AND NOT all-outside — a handful of VPU
+        #      AND NOT all-inside AND NOT all-outside — a handful of
         #      bit-ops over 16 MB;
         #   3. active z-columns (any bit set) are compacted FIRST (nonzero
         #      over XY elements), and only then the first K set bits per
@@ -181,9 +198,7 @@ def marching_cubes(
         vox_idx, n_occ_total, _ = compaction.extract_columns(
             occ_w, per_column=K, max_cols=max_cols, max_out=max_voxels,
             row_stride=cz, fill=n_cells,
-            # rank-select (ops/compaction.py): the earlier nested-LSB-round
-            # formulation OOMed THIS program's TPU compile; rank-select has
-            # no nested rounds and compile-checked at 128/512-cube
+            # rank-select (ops/compaction.py): no nested LSB rounds
             packed_cols=True)
     vox_valid = vox_idx < n_cells
     # any capacity overflow (per-column K, active-column cap, max_voxels)
@@ -205,8 +220,8 @@ def marching_cubes(
 
     # gather 8 corner tsdf values: (max_voxels, 8). The f16 pair (F[z],
     # F[z+1]) is bit-packed into one uint32 per voxel, so each cell needs 4
-    # gathers instead of 8 (measured 17.9 -> 13.8 ms at 512-cube; the pack
-    # itself is one fused streaming pass). Interpolation math below is f32,
+    # gathers instead of 8 (the pack itself is one fused streaming pass).
+    # Interpolation math below is f32,
     # identical to casting the whole field first.
     nxt = jnp.concatenate([Fh[:, :, 1:], Fh[:, :, :1]], axis=2)
     zpair = jax.lax.bitcast_convert_type(
@@ -261,46 +276,21 @@ def marching_cubes(
 
     # LUT rows: (max_voxels, 15) edge ids (-1 padding) from the fused lookup
     rows = lut_rows[:, 1:16].astype(jnp.int32)  # (M, 15)
-    emit = (rows >= 0) & vox_valid[:, None]
-    # per-slot edge select as a masked sum over the 12 edges (gather-free;
-    # unrolled VPU adds — a tiny-inner-dim einsum lowers poorly on TPU)
+    # per-slot edge select as a masked sum over the 12 edges (gather-free,
+    # unrolled elementwise adds)
     verts = jnp.zeros(rows.shape + (3,), jnp.float32)
     for e in range(12):
         verts = verts + jnp.where(
             (rows == e)[..., None], vertlist[:, None, e, :], 0.0
         )
 
-    # emit into the output stream at TRIANGLE granularity: 5 rows of 9
-    # floats per voxel instead of 15 rows of 3 (scatter cost scales with row
-    # count: 23.8 -> 11.2 ms at 512-cube). num_verts is always a multiple
-    # of 3, so tri offsets are exact; the 9-float rows reshape back to the
-    # identical vertex stream. On TPU the emission runs as the Pallas
-    # chunk-pack kernel (mesh/mc_pallas.py): the offsets are monotone, so
-    # each voxel chunk owns a contiguous output range — a one-hot MXU pack
-    # + one ordered DMA per chunk replaces the row-scatter (whose cost
-    # scales with row count at the chip's ~0.25 GB/s scatter rate).
-    from dynfu_tpu.mesh import mc_pallas
-
+    # emit into the output stream at TRIANGLE granularity. num_verts is
+    # always a multiple of 3 and LUT rows emit a prefix of their slots, so
+    # the per-voxel triangle counts and offsets are exact; the 9-float
+    # rows reshape back to the identical vertex stream.
     max_tris = max_verts // 3
     tris = verts.reshape(verts.shape[0], 5, 9)
-    tri_emit = emit[:, ::3]  # (M, 5): slot j emits iff rows[:, 3j] >= 0
-    t_offsets = v_offsets // 3
-    n_tris3 = occ_nverts // 3  # (M,) per-voxel triangle count
-    if mc_pallas.available() and tris.shape[0] % 128 == 0:
-        out = mc_pallas.pack_triangles_tpu(tris, t_offsets, n_tris3,
-                                           max_tris)
-        # rows past the final chunk's write window are uninitialized HBM;
-        # zero them like the scatter path did (NaN garbage would poison
-        # downstream masked matmuls)
-        total_tris = total_verts // 3
-        row_ok = jnp.arange(max_tris, dtype=jnp.int32) < total_tris
-        out = jnp.where(row_ok[:, None], out, 0.0)
-    else:
-        tri_slot = jnp.arange(5, dtype=jnp.int32)[None, :]
-        tgt = jnp.where(tri_emit, t_offsets[:, None] + tri_slot, max_tris)
-        out = jnp.zeros((max_tris + 1, 9), jnp.float32)
-        out = out.at[tgt.reshape(-1)].set(tris.reshape(-1, 9), mode="drop")
-        out = out[:max_tris]
+    out = emit_triangles(tris, v_offsets // 3, occ_nverts // 3, max_tris)
     stream = out.reshape(max_tris * 3, 3)
     if max_tris * 3 < max_verts:  # keep the advertised (max_verts, 3) shape
         stream = jnp.pad(stream, ((0, max_verts - max_tris * 3), (0, 0)))

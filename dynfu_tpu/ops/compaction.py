@@ -1,7 +1,7 @@
 """Bit-packed z-column compaction: dense 3-D masks -> flat index lists.
 
-The TPU executes XLA's ``nonzero`` as one scatter per INPUT element (~950 ms
-for a 512-cube), so sparse-set extraction from dense volumetric masks is
+XLA lowers ``nonzero`` as one scatter per INPUT element (a 512-cube mask is
+134M elements), so sparse-set extraction from dense volumetric masks is
 formulated hierarchically over bit-packed columns instead:
 
   1. pack per-z-column mask bits into ceil(Z/32) uint32 words — 32x smaller
@@ -102,12 +102,12 @@ def rank_select(mask: jnp.ndarray, size: int, fill: int) -> jnp.ndarray:
     """First `size` true indices of a 1-D bool mask, ascending, `fill`
     padded — a drop-in for ``jnp.nonzero(mask, size=..., fill_value=...)[0]``
     that avoids XLA's one-scatter-per-INPUT-element lowering for large
-    masks (~7 ms per million elements on this TPU). Single-level rank
-    select: pack the mask 32x, per-word popcount + exclusive cumsum
-    assigns each active slot its word, and prefix-popcount picks the
-    slot's bit — one small stamp-scatter + VPU blocks, no per-round bit
-    extraction (a 32-round unrolled variant of this measurably OOMed the
-    TPU compile helper when nested inside the fusion frame, round 5)."""
+    masks. Single-level rank select: pack the mask 32x, per-word
+    popcount + exclusive cumsum assigns each active slot its word, and
+    prefix-popcount picks the slot's bit — one small stamp-scatter +
+    elementwise blocks, no per-round bit extraction (a 32-round unrolled
+    variant ran out of compiler memory when nested inside the fusion
+    frame)."""
     n = mask.shape[0]
     nwm = (n + 31) // 32
     padded = jnp.pad(mask, (0, nwm * 32 - n))
@@ -154,8 +154,8 @@ def extract_bits(
     by prefix popcount. No per-column bit budget exists, so z-parallel
     surfaces (walls/floors filling whole columns) cost nothing extra —
     `extract_columns`' per-column rounds made the umbrella's 512-cube
-    extraction pay budget(256) x max_cols x nwords word-ops (~13 s/frame,
-    round 5); here the work scales only with the capacities.
+    extraction pay budget(256) x max_cols x nwords word-ops per frame;
+    here the work scales only with the capacities.
 
     Returns (flat_idx (max_out,) int32 ascending with `fill` padding,
     n_total set bits, n_captured <= n_total). Capture is an ascending
@@ -226,15 +226,15 @@ def extract_columns(
     col_active = jnp.any(occ_w != jnp.uint32(0), axis=1)
     if packed_cols:
         # XLA lowers `nonzero` as one scatter per INPUT element — at the
-        # edge extraction's X*Y*3 = 786k columns that single op measured
-        # 16.6 of the 18 ms extraction (scripts/diag/ubench_edges.py).
+        # edge extraction's X*Y*3 = 786k columns that single op dominated
+        # the extraction.
         # RANK-SELECT formulation: pack the mask 32x, per-word popcount +
         # exclusive cumsum assigns every active column its output slot,
         # and each output slot selects the k-th set bit of its word by
-        # prefix-popcount — one 24k stamp-scatter + VPU blocks, NO
-        # per-element scatter and no nested LSB rounds (which OOM this
-        # environment's TPU compile helper — SIGKILL, reproducible, both
-        # inside marching cubes and standalone in the edge extraction).
+        # prefix-popcount — one 24k stamp-scatter + elementwise blocks, NO
+        # per-element scatter and no nested LSB rounds (which ran the
+        # compiler out of memory, both inside marching cubes and
+        # standalone in the edge extraction).
         # OPT-IN because callers must compile-check their fused program.
         nwm = (ncols + 31) // 32
         padded = jnp.pad(col_active, (0, nwm * 32 - ncols))
@@ -295,7 +295,7 @@ def extract_columns(
     else:
         # large per-column budgets (the fusion band's col_budget=128)
         # must NOT unroll: 128 unrolled rounds blow the HLO up into a
-        # pathological (tens-of-minutes, sometimes failing) TPU compile
+        # pathological (tens-of-minutes, sometimes failing) compile
         def body(r, state):
             words, cand = state
             words, c = one_round(words)

@@ -1,16 +1,15 @@
-"""Depth-image preprocessing and rendering ops (TPU, jitted jnp).
+"""Depth-image preprocessing and rendering ops (jitted jnp).
 
 Re-designs the reference's CUDA image kernels (src/kfusion/cuda/imgproc.cu,
 host wrappers src/kfusion/imgproc.cpp) as fused, vectorized XLA programs.
 Each per-pixel CUDA kernel becomes a whole-image expression: window stencils
 are expressed as shift-and-mask sums that XLA fuses into a single pass over
-HBM — there is no reason to hand-write Pallas for these since they are pure
-VPU elementwise/stencil work that the compiler already tiles optimally
-(640-wide rows are 5 native 128-lane registers).
+device memory — pure elementwise/stencil work that needs no hand-written
+kernel.
 
 Conventions (identical to the reference):
 * depth images are (H, W) in integer millimeters (reference: ushort);
-  here int32 for TPU-friendly arithmetic, values 0..65535.
+  here int32 arithmetic, values 0..65535.
 * invalid pixels in point/normal maps are NaN (reference uses CUDA qnan).
 * ``dists`` is the metric ray length in meters, stored float16
   (reference packs half, imgproc.cu:248-259).

@@ -1,24 +1,19 @@
-"""k-nearest-neighbor search and fused neighbor-state fetch, TPU-style.
+"""k-nearest-neighbor search and fused neighbor-state fetch.
 
 Replaces the reference's vendored nanoflann KD-tree (include/nanoflann/,
-used at warp_field.cpp:118, dyn_fusion.cpp:234, opt_solver.cpp:88). On TPU
-the idiomatic formulation is a dense distance computation on the MXU plus
-vectorized selection on the VPU — exact, and orders of magnitude faster than
+used at warp_field.cpp:118, dyn_fusion.cpp:234, opt_solver.cpp:88) with a
+dense distance computation plus vectorized selection — exact, and free of
 per-query tree walks for the problem sizes involved.
 
-Hardware notes that shape this file (measured on v5 lite):
-* element gathers (x[idx]) run ~1000x slower than matmul FLOPs, so neighbor
-  STATE is fetched by one-hot matmuls fused with the search (`knn_gather`,
-  `nn1_gather`), never by indexing;
-* K=3 contractions hit a pathological Mosaic compile path (minutes of
-  compile time at HIGHEST precision) — all point matmuls pad the coordinate
-  axis to a full 128 lane tile (`_PAD_K`), which also keeps the MXU fed;
-* `lax.top_k` is slow for small k; `_topk_argmin` extracts k minima by
-  iterated masked argmin (exact, ties to the lower index — the same rule as
-  lax.top_k and nanoflann's ordered results);
-* one-hot matmuls run on the fast bf16 MXU path: the one-hot factor is
-  exact in bf16, the value table is split hi/lo so the f32 result is exact
-  to roundoff (`_onehot_fetch`).
+Formulation notes:
+* neighbor STATE is fetched by one-hot matmuls fused with the search
+  (`knn_gather`, `nn1_gather`): the one-hot factor is exact in bf16 and the
+  value table is split three ways into bf16 parts (`_bf16_parts`), so the
+  f32 result is exact (`_onehot_fetch`) at any matmul precision;
+* point matmuls pad the coordinate axis from 3 to `_PAD_K` columns;
+* `_topk_argmin` extracts k minima by iterated masked argmin (exact, ties
+  to the lower index — the same rule as lax.top_k and nanoflann's ordered
+  results).
 """
 
 from __future__ import annotations
@@ -31,7 +26,7 @@ import jax.numpy as jnp
 
 _hi = jax.lax.Precision.HIGHEST
 _INF = jnp.float32(jnp.inf)
-_PAD_K = 128  # pad 3-d coordinates to one full lane tile
+_PAD_K = 128  # 3-d coordinates padded to this many columns
 
 
 def _pad_coords(x):
@@ -39,28 +34,27 @@ def _pad_coords(x):
 
 
 def pairwise_sqdist(queries: jnp.ndarray, points: jnp.ndarray) -> jnp.ndarray:
-    """Squared L2 distances (Q, P) = |q|^2 - 2 q.p + |p|^2 (MXU-friendly)."""
+    """Squared L2 distances (Q, P) = |q|^2 - 2 q.p + |p|^2."""
     qn = jnp.sum(queries * queries, axis=-1, keepdims=True)  # (Q, 1)
     pn = jnp.sum(points * points, axis=-1)  # (P,)
     cross = jnp.matmul(
         _pad_coords(queries), _pad_coords(points).T, precision=_hi
-    )  # (Q, P) on the MXU, K padded to a full tile
+    )  # (Q, P), K padded
     d = qn - 2.0 * cross + pn[None, :]
     return jnp.maximum(d, 0.0)
 
 
 def _topk_argmin(d: jnp.ndarray, k: int):
     """k smallest per row of d (Q, P): (values (Q,k), indices (Q,k)) sorted
-    ascending, ties to the lower index. Iterated masked argmin — exact, and
-    much faster than lax.top_k for small k on TPU.
+    ascending, ties to the lower index. Iterated masked argmin — exact.
 
     Each round selects the successor of the previous pick in (value, index)
     lexicographic order — a strict total order, so successive minima ARE the
     ascending ties-to-lower-index sequence. Masking "already selected" this
     way needs only the previous round's per-row scalars, so d is never
     rewritten: every round is a pure fused read of d (the old
-    rewrite-selected-to-inf formulation spent a full (Q, P) write per round;
-    8-NN over (262k, 1024) measured 41 -> ~21 ms)."""
+    rewrite-selected-to-inf formulation spent a full (Q, P) write per
+    round)."""
     iota = jnp.arange(d.shape[-1], dtype=jnp.int32)
     vals, idxs = [], []
     v_prev = jnp.full(d.shape[:-1], -_INF, d.dtype)
@@ -134,25 +128,41 @@ def knn_blocked(
 
 
 # ---------------------------------------------------------------------------
-# fused gather-free neighbor lookups
+# fused neighbor lookups
 # ---------------------------------------------------------------------------
 
 
+def _bf16_parts(table: jnp.ndarray):
+    """Exact three-way bf16 split of an f32 table: hi + mid + lo == table.
+
+    Each part keeps the leading 8 significant bits of what the previous
+    parts left (3 x 8 bits cover f32's 24). The parts are cut by masking
+    the low 16 bits of the f32 pattern, not by f32 -> bf16 -> f32 round
+    trips, which a compiler allowed excess precision may fold away (that
+    would leave hi alone, a bf16-precision fetch)."""
+    def trunc(x):
+        bits = jax.lax.bitcast_convert_type(x, jnp.uint32)
+        return jax.lax.bitcast_convert_type(bits & jnp.uint32(0xFFFF0000),
+                                            jnp.float32)
+
+    hi = trunc(table)
+    rem = table - hi  # exact: the low 16 mantissa bits
+    mid = trunc(rem)
+    lo = rem - mid  # exact, <= 8 significant bits
+    return tuple(x.astype(jnp.bfloat16) for x in (hi, mid, lo))
+
+
 def _onehot_fetch(oh_f32: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
-    """oh @ table with exact-in-bf16 one-hot and a THREE-term bf16 split of
-    the table (3 x 8 mantissa bits covers f32's 24): the fetch is f32-exact
-    on the fast bf16 MXU path (avoids slow HIGHEST small matmuls)."""
+    """oh @ table with an exact-in-bf16 one-hot and the exact three-way
+    bf16 split of the table (`_bf16_parts`): each output element sums one
+    nonzero product per part, so the fetch is f32-exact whatever precision
+    the matmul units run at."""
     oh = oh_f32.astype(jnp.bfloat16)
-    f32 = jnp.float32
-    hi = table.astype(jnp.bfloat16)
-    rem = table - hi.astype(f32)
-    mid = rem.astype(jnp.bfloat16)
-    lo = (rem - mid.astype(f32)).astype(jnp.bfloat16)
     out = None
-    for part in (hi, mid, lo):
+    for part in _bf16_parts(table):
         term = jax.lax.dot_general(
-            oh, part, (((1,), (0,)), ((), ())), preferred_element_type=f32
-        )
+            oh, part, (((1,), (0,)), ((), ())),
+            preferred_element_type=jnp.float32)
         out = term if out is None else out + term
     return out
 
@@ -168,8 +178,8 @@ def knn_gather(
     """Fused k-NN + feature fetch: (idx (Q,k), sqdists (Q,k), feats (Q,k,F)).
 
     Equivalent to ``idx, d = knn(...); feats = table[idx]`` but with the
-    fetch as one-hot matmuls built from the argmin output — exact, no
-    element gathers. Single-shot over Q (the (Q, D) distance matrix for the
+    fetch as one-hot matmuls built from the argmin output — exact.
+    Single-shot over Q (the (Q, D) distance matrix for the
     node-capacity D of this engine is a few hundred MB at most).
     """
     Q = queries.shape[0]
@@ -307,8 +317,8 @@ def nn1_gather_sorted(
 
 def _nn1_brute_subset(qs, ps, vs, chunk: int = 32768):
     """Exact 1-NN + fetch for a SMALL query set vs ALL points: streaming
-    running-min over point chunks (R x chunk elementwise distances on the
-    VPU, winners fetched per chunk by one-hot matmul). No certificate —
+    running-min over point chunks (R x chunk elementwise distances, winner
+    index tracked per chunk). No certificate —
     every point is examined, so the result is exact by construction.
     Returns (vals (R, F), found (R,)); found is False only for queries
     with no finite-distance point (BIG-masked query or empty point set).
@@ -441,13 +451,10 @@ def nn1_gather_xwindow(
 ):
     """Windowed 1-NN + fetch for near-coincident surfaces: (vals, exact).
 
-    The successor of `nn1_gather_sorted` tuned on the v5e (scripts/
-    ubench_corr.py): at the 512-cube workload (Q=P=262k) the round-1
-    formulation spent ~72 ms in a K-padded-to-128 HIGHEST distance matmul
-    and ~27 ms in three payload sorts; this version
+    The successor of `nn1_gather_sorted`, which spent its time in a
+    K-padded HIGHEST distance matmul and three payload sorts; this version
       * computes window distances with unrolled elementwise broadcasts
-        (the K=3 contraction wastes 125/128 of the MXU; the VPU form is
-        2.4x faster and exact),
+        (exact f32, no K=3 contraction),
       * sorts ONLY the points along x (queries arrive nearly sorted from
         marching cubes' x-major emission; results are written back in
         query order, so the query sort AND the un-sort disappear),
@@ -456,12 +463,6 @@ def nn1_gather_xwindow(
         query whose window cannot be certified reports exact=False and
         must be masked by the caller — the engine counts these drops in
         FrameStats.corr_dropped).
-
-    On TPU with values=None the window sweep runs as the Pallas
-    resident-point kernel (ops/corr_pallas.py): the transposed point set
-    stays in VMEM and distances / argmin / the winner fetch never touch
-    HBM (the XLA sweep re-reads a (block, W) distance matrix from HBM
-    three times).
 
     Failure tiers (a failure = the per-query exactness certificate cannot
     prove the window contained the global 1-NN — dense x-slabs like
@@ -476,8 +477,7 @@ def nn1_gather_xwindow(
       covers two x-extremes) — those queries simply fail again and fall
       through to the brute tier.
     * rescue > 0: up to `rescue` still-failed queries get an exact
-      brute-force scan over ALL points (chunk-streamed on the VPU,
-      ~2 ms at R=4096 vs P=262k). Rescued queries are exact by
+      brute-force scan over ALL points (chunk-streamed). Rescued queries are exact by
       construction; only failures beyond the capacity remain exact=False
       (the engine counts them in FrameStats.corr_dropped).
     """
@@ -503,7 +503,7 @@ def nn1_gather_xwindow(
         qs0 = jnp.where(query_mask[:, None], qs0, BIG)
 
     # sort points by x, carrying y/z (+ explicit value columns if any).
-    # `presorted=True` skips the sort (~9 ms at P=262k): the exactness
+    # `presorted=True` skips the sort: the exactness
     # certificate is ORDER-FREE (_window_bounds), so sortedness only
     # affects how many certificates pass — callers whose point set is
     # already nearly x-ordered (a marching-cubes soup is emitted x-major,
@@ -512,10 +512,8 @@ def nn1_gather_xwindow(
     # lowest index in ps order — with presorted that is the ORIGINAL point
     # order, which matches nanoflann's lowest-original-index pick.
     # values_fn: payload computed AFTER the sort from the SORTED points —
-    # lax.sort's TPU compile time explodes with operand arity (measured:
-    # arity 3 @65k seconds-scale, arity 4 = 37 s, arity 22 = effectively
-    # hung), so per-point payload that is a pure function of the point
-    # POSITION must not ride the sort. values_fn(sorted_uncentered_points,
+    # a sort's cost grows with its operand arity, so per-point payload that
+    # is a pure function of the point POSITION need not ride the sort. values_fn(sorted_uncentered_points,
     # sorted_valid) -> (P, F) raw payload; masked slots are zeroed (BIG
     # coords would otherwise produce inf/NaN payload, and the one-hot
     # fetch MATMUL sums 0*inf = NaN across the whole window).
@@ -544,23 +542,10 @@ def nn1_gather_xwindow(
         values = vs  # fetched payload semantics from here on
         F = vs.shape[1]
 
-    from dynfu_tpu.ops import corr_pallas
-
-    # the Pallas sweep keeps the transposed point set resident in VMEM —
-    # bounded to ~8.4 MB of the ~16 MB budget. Payload fetch (values) rides
-    # the same kernel for F <= 32 columns (ints <= 2^16 exact, floats
-    # ~16-bit-relative through the hi/lo split).
-    use_pallas = (corr_pallas.available() and P <= (1 << 18) + 8192
-                  and (values is None or F <= 32))
-
     def one_pass(qs_c, wb):
         """One windowed sweep over the SORTED points for BIG-masked
         centered queries qs_c: (vals CENTERED-if-coords, exact)."""
         n = qs_c.shape[0]
-        if use_pallas:
-            return _window_pass_pallas(
-                qs_c, ps, n, P, wb * block,
-                vals=None if values is None else vs)
         padq = (-n) % block
         qsp = jnp.pad(qs_c, ((0, padq), (0, 0)), constant_values=BIG)
         W = wb * block
@@ -638,56 +623,6 @@ def _brute_rescue(vals, exact, qs0, ps, vs, R: int):
                          lambda fq: _nn1_brute_subset(fq, ps, vs))
 
 
-def _window_pass_pallas(qs0, pts, Q: int, P: int, W: int,
-                          tq: int = 2048, interpret: bool = False,
-                          vals=None):
-    """Window starts + order-free bounds at 128-element granularity, then
-    the Pallas resident-point sweep (ops/corr_pallas.py) over the (sorted)
-    BIG-masked centered points. Same contract as the `_window_sweep`
-    branch: (vals (Q,3) CENTERED coords — or the (Q,F) payload rows when
-    `vals` is given — exact (Q,))."""
-    from dynfu_tpu.ops import corr_pallas
-
-    BIG = jnp.float32(3e38)
-    B = 128
-    Qp = -(-max(Q, tq) // tq) * tq
-    Pp = -(-max(P + 1, W) // B) * B
-    W = min(W, Pp)
-    qsP = jnp.pad(qs0, ((0, Qp - Q), (0, 0)), constant_values=BIG)
-    nqt = Qp // tq
-    npb = Pp // B
-
-    xpad = jnp.full((Pp,), BIG, jnp.float32).at[:P].set(pts[:, 0])
-    xb = xpad.reshape(npb, B)
-    vp = xb < 1e37
-    nv = jnp.maximum(jnp.sum(vp, axis=1).astype(jnp.float32), 1.0)
-    bmean = jnp.sum(jnp.where(vp, xb, 0.0), axis=1) / nv
-    bmean = jnp.where(jnp.any(vp, axis=1), bmean, BIG)
-    # order-free exactness bounds shared with the XLA sweep (only the
-    # x column is read, so the (Pp, 1) view suffices)
-    pre, suf = _window_bounds(xpad[:, None], B)
-
-    qx = qsP[:, 0].reshape(nqt, tq)
-    vq = qx < 1e37
-    nq = jnp.maximum(jnp.sum(vq, axis=1).astype(jnp.float32), 1.0)
-    qmid = jnp.sum(jnp.where(vq, qx, 0.0), axis=1) / nq
-    c = jnp.argmin(jnp.abs(qmid[:, None] - bmean[None, :]),
-                   axis=1).astype(jnp.int32)
-    lo_el = jnp.clip(c * B - W // 2, 0, Pp - W)
-    lo_el = (lo_el // B) * B
-    lo_b = lo_el // B
-    pre_v = pre[lo_b]
-    suf_v = suf[lo_b + W // B]
-
-    ptsP = jnp.pad(pts, ((0, Pp - P), (0, 0)), constant_values=BIG)
-    valsP = None if vals is None else jnp.pad(
-        vals, ((0, Pp - P), (0, 0)))
-    vals_p, ex_p = corr_pallas.nn1_window_sweep_tpu(
-        qsP, ptsP, lo_el, pre_v, suf_v, tq=tq, window=W,
-        interpret=interpret, vals_payload=valsP)
-    return vals_p[:Q], ex_p[:Q]
-
-
 @functools.partial(jax.jit, static_argnames=("block",))
 def nn1_gather(
     queries: jnp.ndarray,  # (Q, 3)
@@ -699,8 +634,8 @@ def nn1_gather(
     """Fused 1-NN + value fetch for LARGE point sets: (idx (Q,), vals (Q,F)).
 
     The fetch turns the argmin into an exact 0/1 one-hot (ties to the lower
-    index, nanoflann-style single pick) and contracts it with `values` on the
-    bf16 MXU path with a hi/lo-split table — f32-exact, no element gathers.
+    index, nanoflann-style single pick) and contracts it with `values` as
+    bf16 matmuls over a hi/mid/lo-split table — f32-exact.
 
     The distance matrix keeps only the argmin-relevant terms (|p|^2 - 2 q.p;
     the per-row |q|^2 shifts every candidate equally) in f32 — bf16 would be

@@ -10,7 +10,7 @@ The reference's architecture is a GPU/CPU ping-pong: every iteration it
 launches a correspondence+reduce kernel, async-copies 27 floats into
 page-locked memory, synchronizes a stream, unpacks a symmetric 6x6 on the
 CPU, and solves with cv::solve(DECOMP_SVD) (projective_icp.cpp:25-57,
-177-197). On TPU the whole schedule — all levels, all iterations,
+177-197). Here the whole schedule — all levels, all iterations,
 correspondence, normal-equation reduction AND the 6x6 solve — is one jitted
 program: the reduction is a plain masked sum (XLA's cross-lane reduce
 replaces the hand-written warp scans) and the solve stays on device, so
@@ -44,12 +44,9 @@ _mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 
 def _rot3(p, R):
-    """(..., 3) x (3, 3)^T as broadcast sums: p @ R.T without the MXU.
-
-    An (N, 3) x (3, 3) HIGHEST matmul runs at 3/128 x 3/128 MXU tile
-    utilization x 6 passes (and risks the documented pathological-compile
-    class, ops/knn.py) — the same replacement volume/fusion.py:170 and
-    engine/dynfusion.py:384 use."""
+    """(..., 3) x (3, 3)^T as broadcast sums: p @ R.T in exact f32 without
+    a K=3 matmul — the same replacement volume/fusion.py and
+    engine/dynfusion.py use."""
     return (p[..., 0:1] * R[:, 0] + p[..., 1:2] * R[:, 1]
             + p[..., 2:3] * R[:, 2])
 
@@ -57,12 +54,9 @@ def _rot3(p, R):
 def _normal_equations_reduce(Jf, r):
     """A = J^T J, b = J^T r as a fused broadcast-multiply + tree reduce.
 
-    The (6, N) x (N, 6) matmul pads M = N = 6 up to the 128x128 MXU tile
-    (0.2% utilization) and at HIGHEST runs 6 passes — measured ~1 ms per
-    ICP iteration at 640x480, ~20 ms of the 19-iteration schedule. The
-    VPU reduction is the reference's own 27-term partial_reduce
-    (proj_icp.cu:101-333) in XLA form; f32 tree adds, no precision loss
-    class vs the 6-pass bf16 matmul."""
+    The reduction is the reference's own 27-term partial_reduce
+    (proj_icp.cu:101-333) in XLA form: f32 tree adds, exact whatever
+    precision the matmul units default to."""
     A = jnp.sum(Jf[:, :, None] * Jf[:, None, :], axis=0)
     b = jnp.sum(Jf * r[:, None], axis=0)
     return A, b
@@ -120,7 +114,7 @@ def _icp_normal_equations(
     r = jnp.nan_to_num(r)
 
     Jf = J.reshape(-1, 6)
-    A = _mm(Jf.T, Jf)  # (6, 6) on the MXU
+    A = _mm(Jf.T, Jf)  # (6, 6)
     b = Jf.T @ r.reshape(-1)
     return A, b
 
@@ -138,19 +132,9 @@ def _fetch_stencil(img, vi, ui, radius: int):
     return NaN (treated like an out-of-image projection).
 
     Rationale: the projective association's flow is small once the coarse
-    pyramid levels have converged the pose, and this chip runs element
-    gathers ~1000x slower than elementwise work — the (2R+1)^2 shifted
-    selects are pure VPU traffic. Replaces the texture fetch of
-    find_coresp (proj_icp.cu:70-99) for the fast (non-parity) ICP mode.
-
-    On TPU the select chain runs as a Pallas kernel with the image
-    resident in VMEM (ops/stencil_pallas.py): the XLA formulation streams
-    the image through HBM once per shifted select — (2R+1)^2 x 7.4 MB per
-    level-0 iteration — which measured ~32 ms of the fused rigid frame."""
-    from dynfu_tpu.ops import stencil_pallas
-
-    if stencil_pallas.available():
-        return stencil_pallas.fetch_stencil_tpu(img, vi, ui, radius)
+    pyramid levels have converged the pose, so the (2R+1)^2 shifted selects
+    are pure elementwise traffic. Replaces the texture fetch of find_coresp
+    (proj_icp.cu:70-99) for the fast (non-parity) ICP mode."""
     H, W = vi.shape
     ys = jnp.arange(H, dtype=jnp.int32)[:, None]
     xs = jnp.arange(W, dtype=jnp.int32)[None, :]
@@ -227,7 +211,7 @@ def estimate_transform_stencil(
 ):
     """`estimate_transform` with stencil-select association (per-level
     window radii, coarse levels wider — they absorb the raw inter-frame
-    motion, the fine levels only the residual). The TPU fast path for the
+    motion, the fine levels only the residual). The fast path for the
     rigid pipeline; the gather variant remains the exact reference
     semantics."""
     dist2 = dist_thres * dist_thres

@@ -36,12 +36,12 @@ from dynfu_tpu.core import dualquat as dq
 from dynfu_tpu.warp import field as wfield
 
 _hi = jax.lax.Precision.HIGHEST
+# Every solver matmul, the Gram assembly included, runs at HIGHEST: the
+# reference accumulates these sums in plain f32, and on a GPU a HIGH or
+# DEFAULT f32 product may run in TF32 (~1e-3 relative per product; the
+# 512-cube normal equations then miss the 1e-5 float64 agreement
+# chip_smoke.py checks).
 _mm = functools.partial(jnp.matmul, precision=_hi)
-# Gram-assembly matmuls use HIGH (3-pass bf16 ≈ f32-faithful, measured
-# 1e-5 relative vs HIGHEST on the 512-cube workload) — the reference
-# accumulates these sums in plain f32, so HIGH matches its precision class
-# at half the MXU passes of HIGHEST.
-_mm_asm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGH)
 
 
 class SolveStats(NamedTuple):
@@ -84,12 +84,11 @@ def _dense_data_normal(canonical_v, data_idx, data_w, s2, delta, D, chunk=8192):
     """Assemble A_data = W^T diag(s2) W (D, D) and b = W^T (s2 * delta)
     (D, 3) from the 8-sparse data-weight rows, gather/scatter-free.
 
-    Rationale: the TPU executes element scatters/gathers orders of magnitude
-    slower than matmuls, so instead of segment-sums over graph edges (the
-    reference's Opt hypergraph reduction), each chunk of vertices expands its
-    sparse weight row into a dense (chunk, D) strip via iota comparison (VPU)
-    and contracts it on the MXU. D is the node capacity (~1k), so A is a
-    small dense matrix that then feeds a cheap PCG.
+    Instead of segment-sums over graph edges (the reference's Opt
+    hypergraph reduction), each chunk of vertices expands its sparse weight
+    row into a dense (chunk, D) strip via iota comparison and contracts it
+    with a matmul, so the sums are deterministic. D is the node capacity
+    (~1k), so A is a small dense matrix that then feeds a cheap PCG.
     """
     N, K = data_idx.shape
     pad = (-N) % chunk
@@ -108,8 +107,8 @@ def _dense_data_normal(canonical_v, data_idx, data_w, s2, delta, D, chunk=8192):
         for r in range(K):
             Wc = Wc + (idx_c[:, r, None] == iota[None, :]) * w_c[:, r, None]
         sW = s2_c[:, None] * Wc
-        A = A + _mm_asm(Wc.T, sW)
-        b = b + _mm_asm(sW.T, d_c)
+        A = A + _mm(Wc.T, sW)
+        b = b + _mm(sW.T, d_c)
         return A, b
 
     A0 = jnp.zeros((D, D), jnp.float32)
@@ -127,7 +126,7 @@ def _dense_reg_normal(reg_idx, edge_mask, D):
     for r in range(K):
         j_oh = (reg_idx[:, r, None] == iota[None, :]).astype(jnp.float32)
         M = (j_oh - n_oh) * edge_mask[:, r, None]  # (D, D) rows
-        A = A + _mm_asm(M.T, M)
+        A = A + _mm(M.T, M)
     return A
 
 
@@ -147,7 +146,6 @@ def build_graphs(wf: wfield.WarpField, canonical_v, knn_k: int = wfield.KNN):
         "tukey_offset", "psi_data", "lambda_reg", "psi_reg",
         "linear_iter", "cg_tol", "knn_k", "nonlinear_iter",
         "num_iter", "early_out", "min_update", "max_update",
-        "data_normal_fn",
     ),
 )
 def solve(
@@ -170,7 +168,6 @@ def solve(
     early_out: bool = True,
     min_update: float = 0.0,
     max_update: float = 0.0,
-    data_normal_fn=None,
 ):
     """One warp solve: returns (updated WarpField, SolveStats).
 
@@ -206,7 +203,7 @@ def solve(
 
     # --- one fused k-NN + node-state pass over the vertices ----------------
     # (the reference walks nanoflann twice and re-reads node structs per
-    # neighbor, opt_solver.cpp:56-72,204-231; here a single MXU pass yields
+    # neighbor, opt_solver.cpp:56-72,204-231; here a single fused pass yields
     # the graph, the data weights AND the DQB for the robust weights).
     # The engine already runs this exact pass to warp the canonical frame
     # (dyn_fusion.cpp:203) — `graph=(data_idx, n_pos, n_w, n_valid, warped)`
@@ -257,18 +254,17 @@ def solve(
             return inv_diag[:, None] * r
 
         def matvec(M, q):
-            # (D, D) x (D, 3) as a VPU broadcast-reduce: the MXU matvec
-            # pads the 3 output columns to a 128-wide tile x 6 HIGHEST
-            # passes (see solver/se3.py _matvec); f32 elementwise is exact
+            # (D, D) x (D, 3) as an elementwise broadcast-reduce: exact
+            # f32, whatever precision the matmul units default to
             return jnp.sum(M[:, :, None] * q[None, :, :], axis=1)
 
         r0 = b - matvec(A, t_init)
         z0 = precond(r0)
         rz0 = jnp.vdot(r0, z0)
 
-        # CG steps are tiny (D x D matvec); per-iteration loop overhead on
-        # TPU dominates, so run UNROLL steps per while-loop trip and check
-        # the tolerance between trips.
+        # CG steps are tiny (D x D matvec); per-iteration loop overhead
+        # dominates, so run UNROLL steps per while-loop trip and check the
+        # tolerance between trips.
         UNROLL = 8
 
         def cond(state):
@@ -305,18 +301,7 @@ def solve(
         return t, iters
 
     def assemble_and_solve(s2_k, t_init):
-        from dynfu_tpu.solver import gram_pallas
-
-        if data_normal_fn is not None:
-            # injected assembly — the multi-chip kernel path passes the
-            # shard_map Gram section here (per-device fused kernel over the
-            # row-sharded data rows + one psum; dist/shard_gram.py)
-            A_data, b = data_normal_fn(data_idx, data_w, s2_k, delta, D)
-        elif gram_pallas.available():
-            # fused VMEM assembly (no HBM one-hot strips) on TPU
-            A_data, b = gram_pallas.data_normal_tpu(
-                data_idx, data_w, s2_k, delta, D)
-        else:
+        with jax.named_scope("gram"):
             A_data, b = _dense_data_normal(canonical_v, data_idx, data_w,
                                            s2_k, delta, D)
         A = A_data + reg_w2 * A_reg

@@ -15,20 +15,20 @@ with y_v the current DQB-warped position and wbar the NORMALIZED blend
 weights (the actual DynamicFusion data term; the parity solver keeps the
 reference's unnormalized quirk).
 
-TPU-first assembly: the 6D x 6D normal matrix is NOT built from per-edge
-scatters (element scatters are this chip's slowest op) nor from a dense
-(N, 6D) Jacobian strip (36x the translation strip FLOPs). Writing the
+Assembly: the 6D x 6D normal matrix is NOT built from per-edge scatters
+(whose sums would be order-dependent) nor from a dense (N, 6D) Jacobian
+strip (36x the translation strip FLOPs). Writing the
 per-vertex Jacobian as J_vk = wbar_vk (U_v + C_k) with U_v = [I | -[y_v]x]
 (vertex-only) and C_k = [0 | [p_k]x] (node-only constant) factorizes every
 block of J^T J into MONOMIAL-WEIGHTED Grams
 
   B_m = W^T diag(s2 * m(y)) W,   m in {1, y_a, y_a y_b}   (10 matrices)
 
-— ten translation-sized MXU contractions (the same shape solver/gn.py
+— ten translation-sized matmul contractions (the same shape solver/gn.py
 already runs one of) plus O(D^2) elementwise assembly with the node
 constants p_k. The reg term (||T_k p_j - T_j p_j||^2, the DynamicFusion
 paper form; the reference's is its translation shadow) has only D*KNN
-edges, so it affords chunked dense (3c, 6D) strips on the MXU directly.
+edges, so it is assembled from batched 6x6 block products directly.
 
 Each Gauss-Newton step composes exp(xi_k) into the node dual quaternions
 (left-compose at the node frame: Trans(p_k) exp(xi) Trans(-p_k), matching
@@ -54,8 +54,7 @@ from dynfu_tpu.solver.gn import tukey_biweights
 from dynfu_tpu.warp import field as wfield
 
 _hi = jax.lax.Precision.HIGHEST
-_mm = functools.partial(jnp.matmul, precision=_hi)
-_mm_asm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGH)
+_mm = functools.partial(jnp.matmul, precision=_hi)  # see solver/gn.py _mm
 
 
 class Se3Stats(NamedTuple):
@@ -77,8 +76,8 @@ def _skew(v):
 
 
 def _fetch_rows(idx, table, chunk: int = 8192):
-    """table[idx] for idx (N, K) int32 over table (D, F) WITHOUT element
-    gathers: chunked one-hot MXU fetch (f32-exact via the hi/lo split)."""
+    """table[idx] for idx (N, K) int32 over table (D, F) as a chunked
+    one-hot matmul fetch (f32-exact via the hi/lo split)."""
     N, K = idx.shape
     D, F = table.shape
     pad = (-N) % chunk
@@ -129,11 +128,11 @@ def _monomial_grams(data_idx, data_w, s2, y, delta, D, chunk: int = 8192):
                  yx * yx, yx * yy_, yx * yz, yy_ * yy_, yy_ * yz, yz * yz]
         Bs = []
         for m in monos:
-            Bs.append(_mm_asm(Wc.T, (s2_c * m)[:, None] * Wc))
+            Bs.append(_mm(Wc.T, (s2_c * m)[:, None] * Wc))
         B = B + jnp.stack(Bs)
         sW = s2_c[:, None] * Wc
-        Bu = Bu + _mm_asm(sW.T, d_c)
-        Bw = Bw + _mm_asm(sW.T, jnp.cross(y_c, d_c))
+        Bu = Bu + _mm(sW.T, d_c)
+        Bw = Bw + _mm(sW.T, jnp.cross(y_c, d_c))
         return B, Bu, Bw
 
     B0 = jnp.zeros((10, D, D), jnp.float32)
@@ -200,9 +199,8 @@ def _assemble_reg(wf, reg_idx, edge_mask, reg_w2, D, chunk: int = 2048,
     r_kj = T_k(p_j) - T_j(p_j): (A_reg (D,6,D,6), b_reg (D,6), cost0).
 
     Edge rows J_e are 3 x 6D with only two nonzero blocks ([I |
-    -[t_k(p_j)-p_k]x] at k, -[I | -[t_j(p_j)-p_j]x] at j). Round 4
-    contracted chunked DENSE (3c, 6D) strips on the MXU — ~90 GMACs per
-    chunk for 12 nonzeros/row (~15-30 ms of every solve at D=640). The
+    -[t_k(p_j)-p_k]x] at k, -[I | -[t_j(p_j)-p_j]x] at j). A dense
+    (3c, 6D) strip would spend ~90 GMACs per chunk on 12 nonzeros/row. The
     edges are naturally (D, K)-shaped (edge (k, r) joins k to
     reg_idx[k, r]), so the assembly needs only the batched 6x6 block
     products and, for the j-side placements, K one-hot (D, D) broadcasts /
@@ -236,7 +234,7 @@ def _assemble_reg(wf, reg_idx, edge_mask, reg_w2, D, chunk: int = 2048,
     Gj = jnp.concatenate(
         [jnp.broadcast_to(eye3, (D, K, 3, 3)), -_skew(yj - n_pos)], -1) * em
 
-    # batched 6x6 block products (D*K small contractions, VPU-sized)
+    # batched 6x6 block products (D*K small contractions)
     Mkk = jnp.einsum("dkai,dkaj->dkij", Gk, Gk, precision=_hi)
     Mkj = jnp.einsum("dkai,dkaj->dkij", Gk, Gj, precision=_hi)
     Mjj = jnp.einsum("dkai,dkaj->dkij", Gj, Gj, precision=_hi)
@@ -262,14 +260,13 @@ def _assemble_reg(wf, reg_idx, edge_mask, reg_w2, D, chunk: int = 2048,
         # approximates a uniform expansion with irreducible inter-node
         # disagreement r_kj ~ sigma (p_k - p_j) (sigma = scale rate),
         # which the ARAP-style term prices — measured as the moving-camera
-        # fusion benchmark's dominant residual (under-tracked breathing,
-        # RESULTS round 4/5). The scale mode is augmented as one scalar
+        # fusion benchmark's dominant residual (under-tracked breathing). The scale mode is augmented as one scalar
         # sigma_c per CONNECTED COMPONENT of the reg graph — a single
         # global sigma is useless the moment the scene holds a deforming
         # object AND static background: the background nodes dominate the
         # global direction, so the object's own scale stays fully priced
-        # (measured: bit-identical warped error with/without the global
-        # flag on the moving-camera scene). Per edge the residual
+        # (bit-identical warped error with/without the global flag on the
+        # moving-camera scene). Per edge the residual
         # derivative is d_e = p_k - p_j (both endpoints shift by
         # sigma (p - c); the component center c cancels); scales do not
         # couple across components, so the exact Schur complement is a
@@ -288,7 +285,7 @@ def _assemble_reg(wf, reg_idx, edge_mask, reg_w2, D, chunk: int = 2048,
         # connected-component labels by min-index propagation with
         # pointer jumping (O(log D) rounds; 10 covers any D here). The
         # pull/push mins ride the existing (D, K, D) one-hot instead of
-        # scatter-min — VPU-sized at D<=1k, and this assembly runs once
+        # scatter-min — small at D<=1k, and this assembly runs once
         # per relinearization. Masked edges do not conduct.
         conn = edge_mask > 0.0  # (D, K)
 
@@ -319,18 +316,16 @@ def _assemble_reg(wf, reg_idx, edge_mask, reg_w2, D, chunk: int = 2048,
 
 
 def _matvec(A, p):
-    """A @ p for a single right-hand vector as a VPU broadcast-reduce.
+    """A @ p for a single right-hand vector as a broadcast-reduce.
 
-    A (n, n) x (n,) on the MXU pads the single output column to the
-    128-wide tile AND runs 6 bf16 passes at HIGHEST — ~11 GFLOP per
-    matvec at n = 3840 for 14.7M useful MACs. The f32 elementwise
-    multiply + row reduction is traffic-bound (one read of A) and exact."""
+    The f32 elementwise multiply + row reduction is traffic-bound (one read
+    of A) and exact, whatever precision the matmul units default to."""
     return jnp.sum(A * p[None, :], axis=1)
 
 
 def _pcg(A, b, x0, linear_iter: int, cg_tol: float):
     """Jacobi-PCG on the flattened (6D,) system (same structure as
-    gn.solve's; unrolled 8-step trips to amortize TPU loop overhead)."""
+    gn.solve's; unrolled 8-step trips to amortize loop overhead)."""
     n = b.shape[0]
     diag = jnp.diagonal(A)
     inv_diag = jnp.where(diag > 0, 1.0 / jnp.maximum(diag, 1e-30), 0.0)
@@ -473,10 +468,10 @@ def solve(
     # centroid. The monomial factorization builds each A/b block from
     # terms ~|y|^2 that cancel down to lever scale (|y - p_k| ~ dg_w);
     # in absolute volume coordinates (~3 m) that cancellation ratio
-    # reaches 1e2-1e3, and the TPU's bf16-3-pass contraction noise
-    # (~1.5e-5 relative of the LARGE terms) lands at the signal scale —
-    # the solve produced tens-of-degrees garbage rotations where the
-    # same math in CPU f32 was stable. The assembled system is exactly
+    # reaches 1e2-1e3, and reduced-precision contraction noise (~1.5e-5
+    # relative of the LARGE terms for 3-pass bf16) lands at the signal
+    # scale — the solve produced tens-of-degrees garbage rotations where
+    # the same math in CPU f32 was stable. The assembled system is exactly
     # shift-invariant (J depends on y and p only through -[y]x + [p]x),
     # so centering changes nothing but the roundoff; xi is solved in the
     # centered frame and composed with the TRUE node positions.
@@ -494,13 +489,7 @@ def solve(
             wf.mask[:, None], dq.dq_mul(upd, wf.dqs), wf.dqs))
         delta = live_v - y
         y_c = y - center  # centered assembly frame (see above)
-        from dynfu_tpu.solver import gram_pallas
-
-        if gram_pallas.available():
-            # fused VMEM assembly of all 10 monomial Grams + both rhs
-            B, Bu, Bw = gram_pallas.monomial_grams_tpu(
-                data_idx, data_w, s2, y_c, delta, D)
-        else:
+        with jax.named_scope("gram"):
             B, Bu, Bw = _monomial_grams(data_idx, data_w, s2, y_c, delta, D)
         A_d, b_d = _assemble_data(B, Bu, Bw, pos_c, D)
         A_r, b_r, _ = _assemble_reg(wf_cur, reg_idx, edge_mask, reg_w2, D,
@@ -551,8 +540,8 @@ def solve(
         y2 = dq.dq_transform_point(blend2, canonical_v)
         # GN safeguarding: PCG on a near-singular normal system
         # occasionally returns a step that RAISES the data cost by orders
-        # of magnitude (512-cube fusion: final_cost spikes of 1e4-1e7x,
-        # scripts/diag/diag_se3_512.py) — its sub-trust-region components
+        # of magnitude (512-cube fusion: final_cost spikes of 1e4-1e7x) —
+        # its sub-trust-region components
         # still pass the step gates and accumulate as drift. Reject the
         # whole step and keep the current state (the next relinearization
         # re-assembles from there). The slack must be GENEROUS: healthy
@@ -590,8 +579,7 @@ def solve(
         # neighborhood by 2 sin(θ/2) dg_w — measured at 512-cube the
         # un-gated solve spins rim nodes ~150° on frame 1 (t_dual ~3.9 m)
         # and either the displacement gate alone misses it or node
-        # insertion cascades along the rogue warp
-        # (scripts/diag/diag_fusion_band.py).
+        # insertion cascades along the rogue warp.
         moved = dq.dq_transform_point(upd, wf.pos) - wf.pos
         norm = jnp.linalg.norm(moved, axis=-1, keepdims=True)
         keep = norm > min_update if min_update > 0.0 else norm >= 0.0

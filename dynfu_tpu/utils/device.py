@@ -54,13 +54,23 @@ def print_device_info(index: int = 0) -> str:
 
 
 def check_platform() -> bool:
-    """True when running on an accelerator backend (the moral analog of the
-    reference's checkIfPreFermiGPU refusal, core.cpp:31-38: warn-and-continue
-    rather than hard-exit when only CPU is available)."""
+    """True when a GPU backend is in use (the moral analog of the
+    reference's checkIfPreFermiGPU check, core.cpp:31-38). Prints
+    "no GPU" to stderr and returns False otherwise."""
+    import sys
+
     import jax
 
-    plat = jax.devices()[0].platform
-    if plat == "cpu":
-        print("Warning: running on CPU — TPU acceleration not available")
+    if jax.default_backend() != "gpu":
+        print(f"no GPU: JAX backend is {jax.default_backend()!r}",
+              file=sys.stderr)
         return False
     return True
+
+
+def require_gpu() -> None:
+    """Exit with status 2 unless JAX runs on a GPU: a measurement or a
+    smoke run on another backend would report numbers for the wrong
+    device."""
+    if not check_platform():
+        raise SystemExit(2)

@@ -1,44 +1,43 @@
 """Persistent XLA compilation cache.
 
-The TPU toolchain on this class of hosts takes minutes to compile some of the
-engine's larger programs (big-K matmul + argmin graphs); a persistent on-disk
-cache makes every process after the first start instantly. Enabled by the
-engines, the CLI, the benchmark harness, and the test suite.
+The engine's larger programs take seconds to minutes to compile; a
+persistent on-disk cache lets every later process reuse them. Enabled by
+the engines, the CLI and the benchmark harness.
 
-Cache location: $DYNFU_CACHE_DIR, else ~/.cache/dynfu_tpu/xla. TPU only —
-see enable_compilation_cache for why the CPU backend must not use it.
+Location: when ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself
+and this module sets no directory. Otherwise the cache lives at one fixed
+path inside the checkout, `CACHE_DIR` (``<repo>/.jax_cache``, git-ignored),
+so every process of the same checkout finds it again. The CPU backend runs
+uncached — see `enable_compilation_cache`.
 """
 
 from __future__ import annotations
 
 import os
+from pathlib import Path
 
-_enabled = False
+CACHE_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
 
 
 def enable_compilation_cache() -> str:
-    """Idempotently turn on JAX's persistent compilation cache — TPU ONLY.
+    """Turn on JAX's persistent compilation cache; returns its directory,
+    or "" on the CPU backend.
 
     XLA:CPU serializes AOT machine code whose feature fingerprint includes
     pseudo-features (+prefer-no-gather/+prefer-no-scatter) the loader then
     fails to match against the host, and a mismatched deserialization
-    SEGFAULTS (took the whole CPU test suite down twice — cpu_aot_loader
-    logs the mismatch as an E-line right before the crash). CPU compiles
-    of this codebase are seconds-scale, so the CPU backend simply runs
-    without a persistent cache; the cache exists for the TPU's
-    minutes-scale engine compiles, and TPU executables are portable."""
-    global _enabled
+    segfaults (cpu_aot_loader logs the mismatch right before the crash).
+    CPU compiles of this codebase are seconds-scale, so the CPU backend
+    runs with the cache switched off, even when the environment names a
+    directory."""
     import jax
 
-    if jax.default_backend() == "cpu" and "DYNFU_CACHE_DIR" not in os.environ:
+    if jax.default_backend() == "cpu":
+        jax.config.update("jax_enable_compilation_cache", False)
         return ""
-    cache_dir = os.environ.get(
-        "DYNFU_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "dynfu_tpu", "xla"),
-    )
-    if not _enabled:
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        _enabled = True
-    return cache_dir
+    if os.environ.get(ENV_VAR):
+        return os.environ[ENV_VAR]
+    CACHE_DIR.mkdir(exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", str(CACHE_DIR))
+    return str(CACHE_DIR)

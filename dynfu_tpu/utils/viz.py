@@ -2,7 +2,7 @@
 
 The reference wraps an interactive OpenCV Viz3d window
 (include/dynfu/utils/pointcloud_viz.hpp, src/.../pointcloud_viz.cpp) which it
-refuses to open over SSH (demo.cpp:179-185). The TPU build renders offline:
+refuses to open over SSH (demo.cpp:179-185). This build renders offline:
 a z-buffered splat of the cloud into a shaded depth image, written as PNG by
 the caller. Host-side numpy — viz is not a per-frame hot path.
 """

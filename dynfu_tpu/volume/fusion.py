@@ -16,11 +16,11 @@ Per active canonical voxel x_c:
   Voxels outside the warp field's support (min_k dist/dg_w >= 1, the
   unsupported rule of warp_field.cpp:34-61) are left untouched.
 
-TPU formulation: the update only has effect inside the truncation band of
+Formulation: the update only has effect inside the truncation band of
 the canonical surface (plus a dilation margin that lets the surface GROW
 into newly observed space), so the voxel set is compacted FIRST with the
 bit-packed column machinery (ops/compaction.py) and all per-voxel work —
-k-NN node search on the MXU, DQB, projection, update — runs over the
+k-NN node search, DQB, projection, update — runs over the
 compacted (max_active,) set, never the dense grid.
 """
 
@@ -32,6 +32,7 @@ from typing import NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 
+from dynfu_tpu.core import dualquat as dq
 from dynfu_tpu.core import se3
 from dynfu_tpu.core.camera import Intr
 from dynfu_tpu.ops import compaction
@@ -111,7 +112,7 @@ def integrate_warped(
     # no per-column budget to overflow, so floor/wall scenes (z-parallel
     # surfaces filling whole columns) need no `col_budget` override —
     # that knob is retained in the signature and ignored. Word capacity:
-    # the band's z-runs average ~11 bits/word (measured at 512-cube), so
+    # the band's z-runs average ~11 bits/word at 512-cube, so
     # max_active // 4 words covers down to 4 bits/word before the
     # n_captured < n_band signal fires.
     flat_idx, n_band, n_captured = compaction.extract_bits(
@@ -137,29 +138,18 @@ def integrate_warped(
 
     # --- warp through the field ("dqb" = the engine's reference-quirk
     # sequential-product blend; "dlb" = the proper Kavan blend the SE(3)
-    # solver path pairs with). On TPU the whole band warp + support ratio
-    # is ONE fused Pallas kernel (ops/warp_pallas.py). -----------------------
-    from dynfu_tpu.ops import warp_pallas
-
-    if warp_pallas.available():
-        p_warp, _, _, ratio = warp_pallas.warp_fused_tpu(
-            p_vol, jnp.zeros_like(p_vol), wf.pos, wf.dqs, wf.w, wf.mask,
-            k=knn_k, blend=blend)
-        supported = ratio < 1.0
-    else:
-        _, sqd, n_pos, n_dq, n_w, n_valid = wfield.neighbor_features(
-            wf, p_vol, knn_k)
-        blend_fn = {"dqb": wfield._dqb_from_features,
-                    "dlb": wfield._dlb_from_features}[blend]
-        blend_dq = blend_fn(p_vol, n_pos, n_dq, n_w, n_valid)
-        from dynfu_tpu.core import dualquat as dq
-
-        p_warp = dq.dq_transform_point(blend_dq, p_vol)
-        # support gate: voxels outside every node's influence radius keep
-        # their canonical value (warp extrapolation there is meaningless)
-        ratio2 = jnp.where(n_valid, sqd / jnp.maximum(n_w * n_w, 1e-30),
-                           jnp.inf)
-        supported = jnp.min(ratio2, axis=-1) < 1.0
+    # solver path pairs with). ----------------------------------------------
+    _, sqd, n_pos, n_dq, n_w, n_valid = wfield.neighbor_features(
+        wf, p_vol, knn_k)
+    blend_fn = {"dqb": wfield._dqb_from_features,
+                "dlb": wfield._dlb_from_features}[blend]
+    blend_dq = blend_fn(p_vol, n_pos, n_dq, n_w, n_valid)
+    p_warp = dq.dq_transform_point(blend_dq, p_vol)
+    # support gate: voxels outside every node's influence radius keep
+    # their canonical value (warp extrapolation there is meaningless)
+    ratio2 = jnp.where(n_valid, sqd / jnp.maximum(n_w * n_w, 1e-30),
+                       jnp.inf)
+    supported = jnp.min(ratio2, axis=-1) < 1.0
 
     # --- project into the live camera + projective SDF -------------------
     cam_from_vol = se3.compose(se3.inverse(camera_pose),

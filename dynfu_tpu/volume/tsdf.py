@@ -1,6 +1,6 @@
 """TSDF volume: creation, integration, raycast, cloud/normal extraction.
 
-TPU re-design of the reference's TSDF stack:
+Array re-design of the reference's TSDF stack:
 * host class   kfusion::cuda::TsdfVolume      (src/kfusion/tsdf_volume.cpp)
 * device side  TsdfIntegrator / TsdfRaycaster / FullScan6 / ExtractNormals
                (src/kfusion/cuda/tsdf_volume.cu), pack/unpack
@@ -9,16 +9,16 @@ TPU re-design of the reference's TSDF stack:
 Design (idiomatic JAX, not a port):
 * The volume is a functional pytree: ``tsdf`` stored float16 — the same
   half-precision the reference packs into its ushort2 — and ``weight`` uint8
-  (max_weight is 64). Arithmetic happens in float32 on the VPU; storage stays
-  half to halve HBM traffic, which is what bounds integrate/raycast.
+  (max_weight is 64). Arithmetic happens in float32; storage stays half to
+  halve device-memory traffic, which is what bounds integrate/raycast.
 * Layout is (X, Y, Z) x-major like the reference, with Z innermost — the
-  z-column walk of TsdfIntegrator becomes the fastest-varying axis, and a
-  (Y, Z) slice is lane-aligned (Z is a multiple of 128 for all standard dims).
+  z-column walk of TsdfIntegrator becomes the fastest-varying axis (Z is a
+  multiple of 128 for all standard dims).
 * ``integrate`` processes the volume in z-chunks under ``lax.fori_loop`` so
-  peak HBM stays at a few (X, Y, chunk) f32 temporaries instead of
+  peak memory stays at a few (X, Y, chunk) f32 temporaries instead of
   materializing whole-volume coordinate grids.
 * ``raycast`` marches ALL rays in lock-step under one ``lax.while_loop``
-  (fixed step, masked early-exit) — the TPU formulation of the reference's
+  (fixed step, masked early-exit) — the batched formulation of the reference's
   divergent per-thread loop — then refines hits with trilinear interpolation
   exactly like the reference (zero-crossing secant + central-difference
   normals).
@@ -53,18 +53,18 @@ def _chunk_size(Z: int, z_chunk: int) -> int:
     return c
 
 
-# geometry matmuls must be exact f32 (TPU MXU defaults to bf16 inputs)
+# geometry matmuls must be exact f32 (the default matmul precision may round
+# f32 operands: TF32 on a GPU)
 _hi = jax.lax.Precision.HIGHEST
 _mm = functools.partial(jnp.matmul, precision=_hi)
 
 # ONE-HOT selection matmuls (0/1 matrix x payload) are BIT-exact at HIGH
-# (3-pass bf16 decomposition) whenever the payload mantissa fits ~19 bits:
-# each output row selects exactly one payload element (no accumulation), and
-# a float16-sourced value (11-bit mantissa) splits exactly into hi+lo bf16
-# terms, so the 3 cross-term passes reconstruct it exactly. HIGHEST (6-pass)
-# doubles the MXU work of integrate/raycast for zero numerical difference —
-# verified bitwise over a 512-cube integrate on TPU (round 5). Payloads that
-# are NOT f16-mantissa (full f32 geometry) must stay on _hi.
+# whenever the payload is float16-sourced: each output row selects exactly
+# one payload element (no accumulation), and an 11-bit f16 mantissa survives
+# both a TF32 operand (10 explicit mantissa bits + the implicit one) and a
+# 3-pass bf16 split. chip_smoke.py checks the separable integrate bitwise
+# against the gather one at 512-cube. Payloads that are NOT f16-mantissa
+# (full f32 geometry) must stay on _hi.
 _onehot = jax.lax.Precision.HIGH
 
 _QNAN = jnp.float32(jnp.nan)
@@ -234,7 +234,7 @@ def integrate_separable(
     fresh: bool = False,
     emit_bitplanes: bool = False,
 ):
-    """MXU fast path of `integrate` for axis-aligned poses.
+    """Separable fast path of `integrate` for axis-aligned poses.
 
     Requires rotation(inv(camera_pose) ∘ volume_pose) == I — true for the
     entire non-rigid pipeline (pose is pinned to identity, dyn_fusion.cpp:
@@ -242,8 +242,7 @@ def integrate_separable(
     engines do.
 
     Why this exists: the projective lookup Dp = dists[v(y,z), u(x,z)] is an
-    element gather, and TPU element gathers measure ~1000x slower than
-    matmul FLOPs (v5e). With identity rotation the per-slab pixel map is
+    element gather per voxel. With identity rotation the per-slab pixel map is
     SEPARABLE — u depends only on (x, z) and v only on (y, z) — so the
     point-sampled image warp factorizes into two small matmuls per z-slab
     with one-hot interpolation matrices built from iota comparisons:
@@ -410,8 +409,8 @@ def _homography_pixels(Hmat: jnp.ndarray, out_shape, in_extent):
 def _warp_image_nearest(img: jnp.ndarray, Hmat: jnp.ndarray, out_shape):
     """out[v', u'] = img[H(u', v')] with nearest (floor) sampling; 0 outside.
 
-    One small-image gather (~3e5 elements) — cheap even at the measured slow
-    TPU gather rate, and exactly mirrors the reference's point-mode fetches.
+    One small-image gather (~3e5 elements), exactly mirroring the
+    reference's point-mode fetches.
     """
     Hi, Wi = img.shape
     px, py, ok = _homography_pixels(Hmat, out_shape, (float(Hi), float(Wi)))
@@ -445,7 +444,7 @@ def integrate_rotated(
     fresh: bool = False,
     emit_bitplanes: bool = False,
 ):
-    """Rotated-camera integrate on the separable MXU path: warp the dists
+    """Rotated-camera integrate on the separable path: warp the dists
     image by the rotation homography, then run integrate_separable from the
     equivalent axis-aligned camera. sdf uses |vc|, which is rotation
     invariant, so the update is mathematically identical up to the pixel
@@ -707,20 +706,19 @@ def raycast(
     in the CAMERA frame, NaN where no surface (reference points variant,
     tsdf_volume.cu:262-327).
 
-    TPU-native design — z-slab sweep, not a per-ray march. The reference
-    marches each ray independently with nearest-voxel fetches (divergent
-    CUDA loop); any literal translation bottoms out in scattered HBM element
-    gathers, which measure ~1000x slower on TPU than gathers from a
-    VMEM-resident table. So the sweep reorders the computation around the
-    memory system:
+    Z-slab sweep, not a per-ray march. The reference marches each ray
+    independently with nearest-voxel fetches (divergent CUDA loop); a
+    literal translation bottoms out in scattered element gathers across the
+    whole volume. So the sweep reorders the computation around the memory
+    system:
 
     1. slab extraction: one strided slice + transpose materializes the
-       sampled z-slabs as (S, Y, X) — sequential HBM traffic at full
+       sampled z-slabs as (S, Y, X) — sequential traffic at full
        bandwidth. The slab stride m approximates the reference's step
        (trunc_dist * raycast_step_factor, in voxels).
     2. sweep: a short fori_loop walks slab chunks; every sample is a
-       bilinear fetch of 4 corners from ONE (Y, X) slab (0.5 MB — lives in
-       VMEM, gathers run at full VPU rate). All rays advance in lock-step
+       bilinear fetch of 4 corners from ONE (Y, X) slab (0.5 MB, small
+       enough to stay cached). All rays advance in lock-step
        through the same slab, so the working set per step is exactly one
        slab instead of the whole volume.
     3. crossing + refinement: consecutive slab samples give the zero
@@ -818,7 +816,7 @@ def raycast_separable(
     shape: Tuple[int, int],
     config: TsdfConfig,
 ):
-    """MXU fast path of `raycast` for axis-aligned poses.
+    """Separable fast path of `raycast` for axis-aligned poses.
 
     Requires rotation(inv(volume_pose) ∘ camera_pose) == I (the non-rigid
     pipeline's permanent state; callers must check — the engines do).
@@ -876,13 +874,12 @@ def raycast_separable(
         Gv = (e1v - e0v) / vsy
         return Bu, Bv, Gu, Gv, valid_u, valid_v
 
-    # DEFAULT (single-pass bf16) for the slab resampling: TSDF values are
-    # in [-1, 1] and bilinear weights in [0, 1], so the ~2^-8 relative
-    # contraction error moves the detected crossing by < 0.5% of a cell
+    # DEFAULT (single-pass bf16 or TF32) for the slab resampling: TSDF
+    # values are in [-1, 1] and bilinear weights in [0, 1], so the <= 2^-8
+    # relative contraction error moves the detected crossing by < 0.5% of a cell
     # (~0.03 mm) — far below the slab-interpolation model error and the
-    # 5.9 mm voxel. Measured on the depth-diverse rigid scene (round 5):
-    # ATE 4.73 mm vs 4.95 at HIGH, i.e. inside scene noise, at 1/3 the
-    # MXU passes (fused rigid frame 69.5 -> 66.5 ms).
+    # 5.9 mm voxel. On the depth-diverse rigid scene the ATE moved 4.73 mm
+    # vs 4.95 at HIGH, i.e. inside scene noise.
     _mmr = functools.partial(jnp.matmul, precision=jax.lax.Precision.DEFAULT)
 
     def slab_sample(g, slab):

@@ -1,6 +1,6 @@
 """The warp field: deformation nodes + dual-quaternion blending (DQB).
 
-TPU re-design of the reference's Warpfield/Node classes
+Batched re-design of the reference's Warpfield/Node classes
 (include/dynfu/warp_field.hpp, src/dynfu/warp_field.cpp,
 src/dynfu/utils/node.cpp): the node set is a fixed-capacity, mask-padded
 struct-of-arrays pytree; every per-vertex CPU loop of the reference
@@ -87,37 +87,29 @@ def find_neighbors(wf: WarpField, points, k: int = KNN):
 
 @functools.partial(jax.jit, static_argnames=("k",))
 def neighbor_features(wf: WarpField, points, k: int = KNN):
-    """Fused k-NN + node-state fetch, entirely gather-free (MXU one-hot).
+    """Fused k-NN + node-state fetch (one-hot matmul fetch).
 
     Returns (idx (Q,k), sqd (Q,k), n_pos (Q,k,3), n_dq (Q,k,8), n_w (Q,k),
     n_valid (Q,k)). This replaces the nanoflann query + per-neighbor struct
-    reads of the reference (warp_field.cpp:99-122) — element gathers are the
-    one operation this TPU does slowly, so the fetch rides the MXU instead.
-
-    On TPU the whole pass runs as one Pallas kernel (ops/knn_pallas.py)
-    that keeps the (Q, D) distance block in VMEM — the XLA formulation
-    round-trips it through HBM k+1 times. Same selection semantics
-    (ascending, ties to lower index); CPU keeps the XLA path.
+    reads of the reference (warp_field.cpp:99-122). Selection is ascending
+    with ties to the lower index (ops/knn.knn_gather).
     """
     points = jnp.asarray(points, jnp.float32)
     table = jnp.concatenate(
         [wf.pos, wf.dqs, wf.w[:, None], wf.mask[:, None].astype(jnp.float32)],
         axis=1,
     )  # (D, 13)
-    from dynfu_tpu.ops import knn_pallas
-
-    if knn_pallas.available() and points.ndim == 2:
-        idx, sqd, feats = knn_pallas.knn_gather_tpu(
-            points, wf.pos, k, table, wf.mask)
-    else:
-        idx, sqd, feats = knn.knn_gather(points, wf.pos, k, table, wf.mask)
+    idx, sqd, feats = knn.knn_gather(points, wf.pos, k, table, wf.mask)
+    # with fewer than k active nodes the surplus slots carry sqd = inf and
+    # an arbitrary (possibly active) node's features: mark them invalid so
+    # the blends treat them as absent, like nanoflann's short result list
     return (
         idx,
         sqd,
         feats[..., 0:3],
         feats[..., 3:11],
         feats[..., 11],
-        feats[..., 12] > 0.5,
+        (feats[..., 12] > 0.5) & jnp.isfinite(sqd),
     )
 
 
@@ -162,19 +154,8 @@ def _dlb_from_features(points, n_pos, n_dq, n_w, n_valid) -> jnp.ndarray:
 def warp_points_normals_dlb(wf: WarpField, points, normals):
     """warpToLive through the PROPER DLB blend: points get the full rigid
     transform, normals get the blended ROTATION only (no reference
-    quirks). The warp path for SE(3) solver state.
-
-    On TPU the whole warp runs as ONE Pallas kernel (ops/warp_pallas.py):
-    k-NN rounds, blend accumulation, and the point/normal transform never
-    leave VMEM."""
-    from dynfu_tpu.ops import warp_pallas
-
+    quirks). The warp path for SE(3) solver state."""
     points = jnp.asarray(points, jnp.float32)
-    if warp_pallas.available() and points.ndim == 2:
-        wp, wn, _, _ = warp_pallas.warp_fused_tpu(
-            points, jnp.asarray(normals, jnp.float32), wf.pos, wf.dqs,
-            wf.w, wf.mask, k=KNN, blend="dlb")
-        return wp, wn
     _, _, n_pos, n_dq, n_w, n_valid = neighbor_features(wf, points)
     blend = _dlb_from_features(points, n_pos, n_dq, n_w, n_valid)
     return (dq.dq_transform_point(blend, points),
@@ -206,43 +187,20 @@ def warp_points_normals(wf: WarpField, points, normals) -> Tuple[jnp.ndarray, jn
 
     Note the reference quirk: normals get transformVertex's full transform
     (translation included) because DualQuaternion::transformNormal is
-    identical to transformVertex.
-
-    On TPU the whole warp runs as ONE Pallas kernel (ops/warp_pallas.py):
-    k-NN rounds, the sequential DQB product, and the transforms never
-    leave VMEM (the split formulation pays ~270 MB of k-NN feature
-    intermediates in HBM at the 512-cube workload)."""
-    from dynfu_tpu.ops import warp_pallas
-
+    identical to transformVertex."""
     points = jnp.asarray(points, jnp.float32)
-    if warp_pallas.available() and points.ndim == 2:
-        wp, wn, _, _ = warp_pallas.warp_fused_tpu(
-            points, jnp.asarray(normals, jnp.float32), wf.pos, wf.dqs,
-            wf.w, wf.mask, k=KNN, blend="dqb")
-        return wp, wn
     blend = calc_dqb(wf, points)
     return dq.dq_transform_point(blend, points), dq.dq_transform_normal(blend, normals)
 
 
 @jax.jit
 def unsupported_mask(wf: WarpField, points, point_mask=None) -> jnp.ndarray:
-    """True where min over 8-NN of dist/dg_w >= 1 (warp_field.cpp:34-61).
-
-    On TPU the ratio falls out of the fused warp kernel's k-NN rounds
-    (ops/warp_pallas.py) without the (Q, k, F) feature intermediates."""
-    from dynfu_tpu.ops import warp_pallas
-
+    """True where min over 8-NN of dist/dg_w >= 1 (warp_field.cpp:34-61)."""
     points = jnp.asarray(points, jnp.float32)
-    if warp_pallas.available() and points.ndim == 2:
-        _, _, _, ratio = warp_pallas.warp_fused_tpu(
-            points, jnp.zeros_like(points), wf.pos, wf.dqs, wf.w, wf.mask,
-            k=KNN, blend="dqb")
-        unsupported = ratio >= 1.0
-    else:
-        _, sqd, _, _, n_w, valid = neighbor_features(wf, points)
-        ratio = jnp.sqrt(sqd) / n_w
-        ratio = jnp.where(valid, ratio, jnp.inf)
-        unsupported = jnp.min(ratio, axis=-1) >= 1.0
+    _, sqd, _, _, n_w, valid = neighbor_features(wf, points)
+    ratio = jnp.sqrt(sqd) / n_w
+    ratio = jnp.where(valid, ratio, jnp.inf)
+    unsupported = jnp.min(ratio, axis=-1) >= 1.0
     if point_mask is not None:
         unsupported = unsupported & point_mask
     return unsupported
@@ -381,16 +339,16 @@ def update_warpfield(wf: WarpField, verts, vert_mask, epsilon: float, leaf: floa
     surface lives inside the TSDF volume, so an unsupported vertex OUTSIDE
     it is a vertex dragged away by a rogue warp, not new geometry —
     inserting a node there bakes the rogue warp into the field permanently
-    (the 512-cube fusion cascade, scripts/diag/diag_fusion_band.py)."""
+    (the 512-cube fusion cascade)."""
     unsup = _unsupported_tiered(wf, verts, vert_mask,
                                 cap=min(verts.shape[0], 4 * max_new))
     if aabb is not None:
         lo, hi = (jnp.asarray(a, jnp.float32) for a in aabb)
         unsup = unsup & jnp.all((verts >= lo) & (verts <= hi), axis=-1)
     # compact the (sparse) unsupported set before the downsample: the hash
-    # scatters in voxel_downsample cost one row per INPUT point (24.6 ms
-    # over the full 262k vertex buffer at 512-cube) while the unsupported
-    # set is typically a few hundred points. Candidates past the 4*max_new
+    # scatters in voxel_downsample cost one row per INPUT point (the full
+    # 262k vertex buffer at 512-cube) while the unsupported set is
+    # typically a few hundred points. Candidates past the 4*max_new
     # compaction cap simply stay unsupported and are picked up next frame.
     n = verts.shape[0]
     cap = min(n, 4 * max_new)

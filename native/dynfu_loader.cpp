@@ -2,20 +2,24 @@
 //
 // Native-runtime counterpart of the reference's C++ dataset path
 // (DynFuApp::loadFiles + cv::imread per frame, src/apps/demo.cpp:39-55,85-90):
-// a worker pool decodes depth PNGs ahead of the consumer so the TPU never
+// a worker pool decodes depth PNGs ahead of the consumer so the device never
 // waits on host-side image decode. Exposed as a minimal C ABI consumed from
 // Python via ctypes (io/native_loader.py).
 //
-// Decoding uses libpng directly (16-bit grayscale, network byte order
-// swapped to host); frames are delivered strictly in order through a
+// Decoding needs no PNG library: the chunks are parsed here, the IDAT
+// stream is inflated by zlib's uncompress() (resolved from libz.so.1 at
+// run time, so building needs no zlib headers), and the row filters are
+// undone here; frames are delivered strictly in order through a
 // fixed-capacity slot ring guarded by a mutex + condvars.
 
-#include <png.h>
+#include <dlfcn.h>
 
+#include <algorithm>
 #include <atomic>
 #include <condition_variable>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <chrono>
 #include <cstring>
 #include <mutex>
@@ -33,66 +37,110 @@ struct Frame {
     bool failed = false;
 };
 
-// Decode one 16-bit (or 8-bit) grayscale PNG into out. Returns false on error.
+// zlib's uncompress(dest, &dest_len, src, src_len) -> Z_OK (0)
+using UncompressFn = int (*)(unsigned char *, unsigned long *,
+                             const unsigned char *, unsigned long);
+
+UncompressFn zlib_uncompress() {
+    static const UncompressFn fn = [] {
+        void *h = dlopen("libz.so.1", RTLD_NOW | RTLD_LOCAL);
+        if (!h) h = dlopen("libz.so", RTLD_NOW | RTLD_LOCAL);
+        return h ? reinterpret_cast<UncompressFn>(dlsym(h, "uncompress"))
+                 : nullptr;
+    }();
+    return fn;
+}
+
+uint32_t be32(const unsigned char *p) {
+    return (uint32_t(p[0]) << 24) | (uint32_t(p[1]) << 16) |
+           (uint32_t(p[2]) << 8) | uint32_t(p[3]);
+}
+
+int paeth(int a, int b, int c) {
+    int pa = std::abs(b - c), pb = std::abs(a - c), pc = std::abs(a + b - 2 * c);
+    return (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+}
+
+// Decode one non-interlaced 8- or 16-bit gray, gray+alpha, RGB or RGBA PNG
+// into out as its first channel widened to uint16 (io/meshio.load_depth_png
+// semantics). Returns false on any error.
 bool decode_png(const std::string &path, Frame &out) {
     FILE *fp = std::fopen(path.c_str(), "rb");
     if (!fp) return false;
+    std::vector<unsigned char> file;
+    unsigned char buf[1 << 16];
+    size_t n;
+    while ((n = std::fread(buf, 1, sizeof buf, fp)) > 0)
+        file.insert(file.end(), buf, buf + n);
+    std::fclose(fp);
 
-    png_structp png =
-        png_create_read_struct(PNG_LIBPNG_VER_STRING, nullptr, nullptr, nullptr);
-    if (!png) {
-        std::fclose(fp);
-        return false;
+    static const unsigned char kSig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
+    if (file.size() < 8 || std::memcmp(file.data(), kSig, 8) != 0) return false;
+    uint32_t width = 0, height = 0;
+    int depth = 0, channels = 0;
+    std::vector<unsigned char> idat;
+    for (size_t pos = 8; pos + 12 <= file.size();) {
+        uint32_t len = be32(&file[pos]);
+        const unsigned char *type = &file[pos + 4], *data = &file[pos + 8];
+        if (len > file.size() - pos - 12) return false;
+        if (std::memcmp(type, "IHDR", 4) == 0 && len >= 13) {
+            width = be32(data);
+            height = be32(data + 4);
+            depth = data[8];
+            static const int kChannels[7] = {1, 0, 3, 0, 2, 0, 4};
+            channels = data[9] <= 6 ? kChannels[data[9]] : 0;
+            if (data[10] != 0 || data[11] != 0 || data[12] != 0) return false;
+        } else if (std::memcmp(type, "IDAT", 4) == 0) {
+            idat.insert(idat.end(), data, data + len);
+        } else if (std::memcmp(type, "IEND", 4) == 0) {
+            break;
+        }
+        pos += 12 + size_t(len);
     }
-    png_infop info = png_create_info_struct(png);
-    if (!info) {
-        png_destroy_read_struct(&png, nullptr, nullptr);
-        std::fclose(fp);
+    if (width == 0 || height == 0 || channels == 0 || (depth != 8 && depth != 16))
         return false;
-    }
-    if (setjmp(png_jmpbuf(png))) {
-        png_destroy_read_struct(&png, &info, nullptr);
-        std::fclose(fp);
+    const size_t bpp = size_t(channels) * (depth / 8);
+    const size_t stride = bpp * width;
+    std::vector<unsigned char> raw(height * (stride + 1));
+    unsigned long raw_len = raw.size();
+    UncompressFn inflate = zlib_uncompress();
+    if (!inflate || inflate(raw.data(), &raw_len, idat.data(), idat.size()) != 0 ||
+        raw_len != raw.size())
         return false;
+
+    // undo the row filters in place (PNG spec section 9)
+    std::vector<unsigned char> zero(stride, 0);
+    for (uint32_t y = 0; y < height; ++y) {
+        unsigned char *row = &raw[y * (stride + 1)];
+        const unsigned char ftype = row[0];
+        unsigned char *cur = row + 1;
+        const unsigned char *prev = y ? &raw[(y - 1) * (stride + 1) + 1] : zero.data();
+        for (size_t i = 0; i < stride; ++i) {
+            int a = i >= bpp ? cur[i - bpp] : 0, b = prev[i];
+            int c = i >= bpp ? prev[i - bpp] : 0, pred;
+            switch (ftype) {
+                case 0: pred = 0; break;
+                case 1: pred = a; break;
+                case 2: pred = b; break;
+                case 3: pred = (a + b) >> 1; break;
+                case 4: pred = paeth(a, b, c); break;
+                default: return false;
+            }
+            cur[i] = static_cast<unsigned char>(cur[i] + pred);
+        }
     }
-
-    png_init_io(png, fp);
-    png_read_info(png, info);
-
-    png_uint_32 width = png_get_image_width(png, info);
-    png_uint_32 height = png_get_image_height(png, info);
-    int bit_depth = png_get_bit_depth(png, info);
-    int color_type = png_get_color_type(png, info);
-
-    // normalize to single-channel 16-bit
-    if (color_type == PNG_COLOR_TYPE_PALETTE) png_set_palette_to_rgb(png);
-    if (color_type & PNG_COLOR_MASK_COLOR) png_set_rgb_to_gray(png, 1, -1, -1);
-    if (color_type & PNG_COLOR_MASK_ALPHA) png_set_strip_alpha(png);
-    if (bit_depth < 8) png_set_expand_gray_1_2_4_to_8(png);
-    if (bit_depth == 16) png_set_swap(png);  // big-endian file -> host LE
-    png_read_update_info(png, info);
-    bit_depth = png_get_bit_depth(png, info);
 
     out.height = static_cast<int>(height);
     out.width = static_cast<int>(width);
-    out.data.resize(static_cast<size_t>(height) * width);
-
-    std::vector<png_bytep> rows(height);
-    std::vector<uint8_t> row8;
-    if (bit_depth == 16) {
-        for (png_uint_32 y = 0; y < height; ++y)
-            rows[y] = reinterpret_cast<png_bytep>(out.data.data() + y * width);
-        png_read_image(png, rows.data());
-    } else {  // 8-bit fallback: widen after read
-        row8.resize(static_cast<size_t>(height) * width);
-        for (png_uint_32 y = 0; y < height; ++y) rows[y] = row8.data() + y * width;
-        png_read_image(png, rows.data());
-        for (size_t i = 0; i < row8.size(); ++i) out.data[i] = row8[i];
+    out.data.resize(size_t(height) * width);
+    for (uint32_t y = 0; y < height; ++y) {
+        const unsigned char *cur = &raw[y * (stride + 1) + 1];
+        uint16_t *dst = out.data.data() + size_t(y) * width;
+        for (uint32_t x = 0; x < width; ++x) {
+            const unsigned char *px = cur + x * bpp;  // first channel
+            dst[x] = depth == 16 ? uint16_t((px[0] << 8) | px[1]) : px[0];
+        }
     }
-
-    png_read_end(png, nullptr);
-    png_destroy_read_struct(&png, &info, nullptr);
-    std::fclose(fp);
     return true;
 }
 
@@ -224,6 +272,9 @@ int dfl_get(void *handle, size_t index, uint16_t *out, int *h, int *w,
 size_t dfl_size(void *handle) { return static_cast<Loader *>(handle)->size(); }
 
 void dfl_close(void *handle) { delete static_cast<Loader *>(handle); }
+
+// 1 when zlib's uncompress() resolved, so frames can be decoded.
+int dfl_zlib_ready() { return zlib_uncompress() != nullptr; }
 
 // Single-shot decode without a loader (for probing / tests).
 int dfl_decode_one(const char *path, uint16_t *out, int *h, int *w,

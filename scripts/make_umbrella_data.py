@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Regenerate the vendored data/umbrella sequence (deterministic bytes).
+"""Regenerate the vendored data/umbrella sequence (deterministic depths).
 
 The reference validates end-to-end on the real VolumeDeform "umbrella"
 Kinect recording (download_data.sh). Its mirrors are unreachable from this

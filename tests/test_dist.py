@@ -154,64 +154,6 @@ def test_sharded_engine_frame_matches(mesh):
     assert int(got[9].mc_dropped) == int(ref[9].mc_dropped) == 0
 
 
-def test_sharded_engine_frame_kernel_path_matches(mesh):
-    """kernel_path=True: the SAME engine frame with the three hottest
-    vertex stages routed through their shard_map Pallas sections
-    (dist/engine_spmd._kernel_path — fused warp kernel per device, tiered
-    correspondence per query shard, Gram assembly + one psum) instead of
-    the GSPMD XLA formulations. On the CPU mesh warp/Gram run the real
-    kernels in interpret mode; the result must match both the plain
-    sharded frame and the single-chip frame."""
-
-    from dynfu_tpu.dist.engine_spmd import (place_engine_state,
-                                            sharded_engine_frame)
-    from dynfu_tpu.engine.dynfusion import DynFusion, _nonrigid_frame
-    from dynfu_tpu.engine.params import DynFuParams, KinFuParams
-    from dynfu_tpu.io.datasets import sphere_depth
-
-    rows, cols = 120, 160
-    intr = Intr(131.25, 131.25, cols / 2 - 0.5, rows / 2 - 0.5)
-    params = DynFuParams(
-        kinfu=KinFuParams(rows=rows, cols=cols, intr=intr,
-                          volume_dims=(64, 64, 64)),
-        max_vertices=1 << 13, max_mc_voxels=1 << 11,
-        max_nodes=128, max_new_nodes=64,
-    )
-    engine = DynFusion(params)
-    d0 = sphere_depth((0.0, 0.0, 1.5), 0.5, rows, cols,
-                      intr.fx, intr.fy, intr.cx, intr.cy)
-    d1 = sphere_depth((0.01, 0.0, 1.5), 0.5, rows, cols,
-                      intr.fx, intr.fy, intr.cx, intr.cy)
-    engine(d0)
-
-    dp, cfg = engine.dynfu_params, engine.tsdf_config
-    c, pose = engine.canonical, engine.poses[-1]
-    args = (engine.vol, engine.warpfield, c.vertices, c.normals, c.mask,
-            jnp.asarray(d1, jnp.int32), pose)
-
-    ref = _nonrigid_frame(*args, dp=dp, intr=intr, config=cfg,
-                          strict_parity=True, integrate_mode="separable")
-
-    step = sharded_engine_frame(mesh, dp, intr, cfg, strict_parity=True,
-                                kernel_path=True)
-    got = step(*place_engine_state(mesh, *args))
-
-    # volume stages identical (they stay on the GSPMD path)
-    assert int(got[8]) == int(ref[8]) > 0  # n_verts
-    np.testing.assert_allclose(np.asarray(got[7]), np.asarray(ref[7]),
-                               atol=1e-6)  # MC triangle soup
-    # warped canonical through the interpret-mode fused kernel
-    np.testing.assert_allclose(np.asarray(got[2]), np.asarray(ref[2]),
-                               atol=1e-4)
-    # solved node state through shard_map corr + psum'd Gram assembly
-    np.testing.assert_allclose(np.asarray(got[1].dqs),
-                               np.asarray(ref[1].dqs), atol=1e-4)
-    np.testing.assert_array_equal(np.asarray(got[1].mask),
-                                  np.asarray(ref[1].mask))
-    assert int(got[9].mc_dropped) == int(ref[9].mc_dropped) == 0
-    assert int(got[9].corr_dropped) == int(ref[9].corr_dropped) == 0
-
-
 def test_sharded_engine_frame_unique_edges_matches(mesh):
     """The unique-edge hot path (DynFuParams.corr_unique_edges — the
     512-cube default since r4) under the mesh: the bit-packed edge
@@ -414,39 +356,6 @@ def test_sharded_fusion_frame_with_se3_rotations(mesh):
                                np.asarray(ref[1].dqs), atol=1e-5)
 
 
-def test_shard_map_pallas_warp_matches(mesh):
-    """dist/shard_warp.py: the fused Pallas warp kernel per device via
-    shard_map (vertices row-sharded, node state replicated) — the
-    multi-chip path that KEEPS the kernels, vs the GSPMD trace that must
-    fall back to XLA. Validated in interpret mode on the CPU mesh."""
-    import numpy as np
-
-    from dynfu_tpu.core import dualquat as dq
-    from dynfu_tpu.dist.shard_warp import warp_points_normals_sharded
-    from dynfu_tpu.warp import field as wfield
-
-    rng = np.random.RandomState(5)
-    nodes = (rng.rand(12, 3).astype(np.float32) - 0.5) * 0.6
-    wf = wfield.init_warpfield(
-        nodes, weights=np.full(12, 0.3, np.float32), capacity=16)
-    rod = jnp.asarray(rng.randn(16, 3).astype(np.float32) * 0.04)
-    t = jnp.asarray(rng.randn(16, 3).astype(np.float32) * 0.01)
-    wf = wf._replace(dqs=jnp.where(wf.mask[:, None],
-                                   dq.dq_from_rodrigues(rod, t), wf.dqs))
-
-    Q = 1024  # divides the 8-device mesh
-    pts = jnp.asarray((rng.rand(Q, 3).astype(np.float32) - 0.5) * 0.6)
-    nrm = jnp.asarray(rng.randn(Q, 3).astype(np.float32))
-
-    want_p, want_n = wfield.warp_points_normals(wf, pts, nrm)
-    got_p, got_n = warp_points_normals_sharded(mesh, wf, pts, nrm,
-                                               blend="dqb", tq=128)
-    np.testing.assert_allclose(np.asarray(got_p), np.asarray(want_p),
-                               atol=2e-5)
-    np.testing.assert_allclose(np.asarray(got_n), np.asarray(want_n),
-                               atol=2e-5)
-
-
 def test_sharded_driver_chains_frames(mesh):
     """ShardedDynFusion drives MULTIPLE frames end-to-end over the mesh
     (frame-0 bootstrap + sharded chaining, state device-resident) and
@@ -520,53 +429,3 @@ def test_sharded_driver_fusion_mode(mesh):
     np.testing.assert_array_equal(np.asarray(wm_d), np.asarray(wm_r))
     np.testing.assert_allclose(np.asarray(wv_d), np.asarray(wv_r),
                                atol=1e-5, rtol=0)
-
-
-def test_shard_map_corr_sweep_matches(mesh):
-    """The tiered correspondence under shard_map (queries row-sharded,
-    points replicated — dist/shard_corr.py) matches the single-device
-    nn1_gather_xwindow output exactly when tier capacities don't bind."""
-    from dynfu_tpu.dist.shard_corr import nn1_xwindow_sharded
-    from dynfu_tpu.ops import knn
-
-    rng = np.random.RandomState(4)
-    P_, Q = 2048, 4096
-    x = np.sort(rng.rand(P_).astype(np.float32))
-    points = np.stack([x, rng.rand(P_).astype(np.float32),
-                       rng.rand(P_).astype(np.float32)], 1)
-    pmask = np.ones(P_, bool)
-    pmask[::11] = False
-    queries = (points[rng.randint(0, P_, Q)]
-               + 0.002 * rng.randn(Q, 3).astype(np.float32))
-    qmask = rng.rand(Q) < 0.95
-
-    ref_v, ref_e = knn.nn1_gather_xwindow(
-        jnp.asarray(queries), jnp.asarray(points), None, jnp.asarray(pmask),
-        jnp.asarray(qmask), escalate=2048, rescue=2048)
-    got_v, got_e = nn1_xwindow_sharded(
-        mesh, jnp.asarray(queries), jnp.asarray(points), jnp.asarray(pmask),
-        jnp.asarray(qmask), escalate=2048, rescue=2048)
-    np.testing.assert_array_equal(np.asarray(got_e), np.asarray(ref_e))
-    np.testing.assert_allclose(np.asarray(got_v), np.asarray(ref_v),
-                               atol=1e-6)
-
-
-def test_shard_map_gram_matches(mesh):
-    """The Gram assembly under shard_map (rows sharded, ONE psum —
-    dist/shard_gram.py) matches the dense single-device normal equations."""
-    from dynfu_tpu.dist.shard_gram import data_normal_sharded
-    from dynfu_tpu.solver.gn import _dense_data_normal
-
-    rng = np.random.RandomState(7)
-    N, K, D = 4096, 8, 128
-    data_idx = jnp.asarray(rng.randint(0, D, (N, K)), jnp.int32)
-    data_w = jnp.asarray(rng.rand(N, K).astype(np.float32))
-    s2 = jnp.asarray(rng.rand(N).astype(np.float32))
-    delta = jnp.asarray(rng.randn(N, 3).astype(np.float32))
-
-    A_ref, b_ref = _dense_data_normal(None, data_idx, data_w, s2, delta, D)
-    A, b = data_normal_sharded(mesh, data_idx, data_w, s2, delta, D)
-    np.testing.assert_allclose(np.asarray(A), np.asarray(A_ref),
-                               rtol=0, atol=2e-4 * float(jnp.max(jnp.abs(A_ref))))
-    np.testing.assert_allclose(np.asarray(b), np.asarray(b_ref),
-                               rtol=0, atol=2e-4 * float(jnp.max(jnp.abs(b_ref))))

@@ -213,7 +213,7 @@ def test_fusion_camera_tracking_static_is_stable():
 
 def test_fusion_512_caps_pin_stability_fixes():
     """Pin the 512-cube SE(3)-fusion stabilization knobs (r3 commit
-    aebe61e + r4 band-capture fix). These values were established by TPU
+    aebe61e + the band-capture fix). These values were established by
     measurement and their failure modes are catastrophic, so the preset is
     a regression surface:
 
@@ -224,8 +224,7 @@ def test_fusion_512_caps_pin_stability_fixes():
       nodes is stable at 0.5 mm);
     * fusion band column budget 128: the truncation-band auto estimate
       silently truncates capture on sphere-tangent z-columns from frame 5
-      (n_captured < n_band; the canonical decays where updated least —
-      r4 per-frame diag, scripts/diag/diag_se3_512.py);
+      (n_captured < n_band; the canonical decays where updated least);
     * band capacity 1 << 19 voxels (1.33x headroom over the stable-run
       band of ~395k; the 565k/786k figures in an earlier draft came from
       a DIVERGING run — params.py rationale).

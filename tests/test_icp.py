@@ -98,8 +98,8 @@ def test_degenerate_plane_raises_flag():
 
 
 def test_stencil_association_matches_gather():
-    """The stencil-select fast path (TPU: element gathers ~1000x slower
-    than shifted selects) recovers the same pose as the exact gather
+    """The stencil-select fast path (shifted selects instead of element
+    gathers) recovers the same pose as the exact gather
     variant whenever the flow fits the window — the converged regime every
     real frame ends in."""
     rvec = np.array([0.008, -0.012, 0.015], np.float32)

@@ -1,8 +1,9 @@
 """k-NN parity vs exact numpy reference (the nanoflann-replacement bar:
-SURVEY.md hard part #4 — the TPU search must return the same neighbor sets
+SURVEY.md hard part #4 — the dense search must return the same neighbor sets
 as a KD-tree or parity drifts through the data graph)."""
 
 import numpy as np
+import pytest
 
 from dynfu_tpu.ops import knn
 
@@ -213,45 +214,6 @@ def test_nn1_gather_xwindow_unsorted_queries_still_correct():
     assert (dg[exact] <= dw[exact] + 5e-7).all()
 
 
-def test_pallas_knn_gather_matches_xla():
-    """The Pallas TPU kernel (interpret mode on CPU) matches knn_gather:
-    same neighbor sets, distances, and fetched features, including masked
-    slots and a non-multiple-of-tile query count."""
-    from dynfu_tpu.ops import knn_pallas
-
-    rng = np.random.RandomState(7)
-    Q, D, F, k = 700, 200, 13, 8  # Q % tq != 0, D % 128 != 0, F % 8 != 0
-    q = rng.uniform(-1.5, 1.5, (Q, 3)).astype(np.float32)
-    p = rng.uniform(-1.5, 1.5, (D, 3)).astype(np.float32)
-    t = rng.randn(D, F).astype(np.float32)
-    m = np.ones(D, bool)
-    m[150:] = False
-
-    i1, d1, f1 = knn.knn_gather(q, p, k, t, m)
-    i2, d2, f2 = knn_pallas.knn_gather_tpu(q, p, k, t, m, tq=256,
-                                           interpret=True)
-    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
-    np.testing.assert_allclose(np.asarray(d1), np.asarray(d2),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(f1), np.asarray(f2),
-                               rtol=1e-5, atol=1e-6)
-
-
-def test_pallas_knn_gather_duplicate_points_tie_order():
-    """Exact duplicates: ties resolve to the LOWER index (nanoflann order)."""
-    from dynfu_tpu.ops import knn_pallas
-
-    p = np.array([[0.5, 0, 0]] * 4 + [[2.0, 0, 0]] * 4, np.float32)
-    q = np.zeros((3, 3), np.float32)
-    t = np.arange(8, dtype=np.float32)[:, None] * np.ones((1, 2), np.float32)
-    idx, _, feats = knn_pallas.knn_gather_tpu(q, p, 4, t, None, tq=128,
-                                              interpret=True)
-    np.testing.assert_array_equal(np.asarray(idx),
-                                  np.tile([0, 1, 2, 3], (3, 1)))
-    np.testing.assert_allclose(np.asarray(feats)[..., 0],
-                               np.tile([0.0, 1, 2, 3], (3, 1)))
-
-
 def test_nn1_gather_xwindow_rescue_pole_caps():
     """Dense x-slabs (thousands of points sharing one x — sphere pole
     caps) defeat the narrow first-pass window; the rescue pass must
@@ -405,72 +367,6 @@ def test_nn1_gather_xwindow_query_mask_and_drop_count():
     assert exact.sum() >= 64
 
 
-def test_corr_pallas_sweep_matches_xla_window_pass():
-    """The Pallas resident-point window sweep (interpret mode) matches the
-    XLA window-pass path: same exactness decisions, identical fetched NNs
-    wherever both certify."""
-    import jax.numpy as jnp
-
-    from dynfu_tpu.ops import knn
-
-    rng = np.random.RandomState(31)
-    P, Q = 5000, 4500
-    base = np.sort(rng.rand(P).astype(np.float32)) * 2.0
-    pts = np.stack([base, np.cos(base * 5) * 0.3, np.sin(base * 5) * 0.3],
-                   -1).astype(np.float32)
-    perm = np.argsort(np.arange(P) + rng.randint(-4, 5, P), kind="stable")
-    pts = pts[perm]
-    queries = pts[:Q] + rng.randn(Q, 3).astype(np.float32) * 0.002
-
-    qj, pj = jnp.asarray(queries), jnp.asarray(pts)
-    # centered inputs, as the caller prepares them
-    cen = pts.mean(0)
-    got, exact = knn._window_pass_pallas(
-        qj - cen, pj - cen, Q, P, W=2048, tq=512, interpret=True)
-    got = np.asarray(got) + cen
-    exact = np.asarray(exact)
-    assert exact.mean() > 0.95
-
-    d = ((queries[:, None].astype(np.float64)
-          - pts[None].astype(np.float64)) ** 2).sum(-1)
-    dg = ((queries - got).astype(np.float64) ** 2).sum(1)
-    assert (dg[exact] <= d.min(1)[exact] + 1e-7).all()
-
-
-def test_knn_pallas_fewer_valid_nodes_than_k():
-    """With fewer than k valid nodes the kernel must return weight-0
-    masked slots (like the XLA path) — NOT re-select valid nodes at full
-    weight (the old selected-entry reset of 1e18 sat BELOW a masked
-    node's ~3e18 distance)."""
-    import jax.numpy as jnp
-
-    from dynfu_tpu.ops import knn, knn_pallas
-
-    rng = np.random.RandomState(17)
-    D, Q, k = 8, 140, 8
-    pts = jnp.asarray(rng.rand(D, 3).astype(np.float32))
-    mask = jnp.asarray([True, True, True, False, False, False, False,
-                        False])
-    table = jnp.asarray(rng.rand(D, 5).astype(np.float32))
-    queries = jnp.asarray(rng.rand(Q, 3).astype(np.float32))
-
-    idx_x, sqd_x, f_x = knn.knn_gather(queries, pts, k, table, mask)
-    idx_p, sqd_p, f_p = knn_pallas.knn_gather_tpu(
-        queries, pts, k, table, mask, tq=128, interpret=True)
-    # the 3 valid nodes come back identically and exactly once
-    np.testing.assert_array_equal(np.asarray(idx_p[:, :3]),
-                                  np.asarray(idx_x[:, :3]))
-    np.testing.assert_allclose(np.asarray(sqd_p[:, :3]),
-                               np.asarray(sqd_x[:, :3]), rtol=1e-5,
-                               atol=1e-6)
-    np.testing.assert_allclose(np.asarray(f_p[:, :3]),
-                               np.asarray(f_x[:, :3]), atol=1e-6)
-    # no valid node is selected twice
-    for r in range(3, k):
-        assert not np.isin(np.asarray(idx_p[:, r]),
-                           np.asarray(idx_p[:, :3])).any()
-
-
 def test_nn1_gather_xwindow_presorted_near_order():
     """presorted=True skips the internal sort; on NEARLY x-ordered points
     (marching-cubes emission order perturbed by a smooth warp) the
@@ -524,3 +420,68 @@ def test_nn1_gather_xwindow_presorted_matches_sorted_path():
         escalate=512, rescue=512, presorted=True)
     assert np.asarray(ea).all() and np.asarray(eb).all()
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-6)
+
+
+def test_knn_gather_duplicate_points_tie_order():
+    """Exact duplicates: ties resolve to the LOWER index (nanoflann order),
+    and the fetched features follow the chosen indices."""
+    p = np.array([[0.5, 0, 0]] * 4 + [[2.0, 0, 0]] * 4, np.float32)
+    q = np.zeros((3, 3), np.float32)
+    t = np.arange(8, dtype=np.float32)[:, None] * np.ones((1, 2), np.float32)
+    idx, _, feats = knn.knn_gather(q, p, 4, t, None)
+    np.testing.assert_array_equal(np.asarray(idx),
+                                  np.tile([0, 1, 2, 3], (3, 1)))
+    np.testing.assert_array_equal(np.asarray(feats)[..., 0],
+                                  np.tile([0.0, 1, 2, 3], (3, 1)))
+
+
+def test_knn_gather_fewer_valid_nodes_than_k():
+    """With fewer than k valid nodes the valid ones come back first, each
+    exactly once, at their float64 distances and features; the remaining
+    slots carry an infinite distance, so the warp's Gaussian weight for
+    them is exactly zero."""
+    from dynfu_tpu.utils import reference
+
+    rng = np.random.RandomState(17)
+    D, Q, k = 8, 140, 8
+    pts = rng.rand(D, 3).astype(np.float32)
+    mask = np.array([True, True, True] + [False] * 5)
+    table = rng.rand(D, 5).astype(np.float32)
+    queries = rng.rand(Q, 3).astype(np.float32)
+
+    idx, sqd, feats = knn.knn_gather(queries, pts, k, table, mask)
+    idx, sqd, feats = np.asarray(idx), np.asarray(sqd), np.asarray(feats)
+    want_i, want_d = reference.knn(queries, pts, 3, mask)
+    np.testing.assert_array_equal(idx[:, :3], want_i)
+    np.testing.assert_allclose(sqd[:, :3], want_d, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(feats[:, :3], table[want_i])
+    assert np.isinf(sqd[:, 3:]).all()
+
+
+@pytest.mark.parametrize("window_blocks", [1, 3])
+def test_window_sweep_matches_brute_force_1nn(window_blocks):
+    """`_window_sweep` (the XLA correspondence sweep): every query it
+    certifies exact gets the true 1-NN (float64 brute force), and its
+    payload fetch returns that point's values exactly."""
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(31 + window_blocks)
+    P, Q, block = 2048, 1792, 256
+    base = np.sort(rng.rand(P).astype(np.float32)) * 2.0
+    pts = np.stack([base, np.cos(base * 5) * 0.3, np.sin(base * 5) * 0.3],
+                   -1).astype(np.float32)
+    queries = pts[:Q] + rng.randn(Q, 3).astype(np.float32) * 0.002
+    vals = rng.randn(P, 4).astype(np.float32)
+    pre, suf = knn._window_bounds(jnp.asarray(pts), block)
+    npb, nqb = P // block, Q // block
+    lo = np.clip(np.arange(nqb) - (window_blocks - 1) // 2, 0,
+                 npb - window_blocks).astype(np.int32)
+    got, exact = knn._window_sweep(jnp.asarray(queries), jnp.asarray(pts),
+                                   jnp.asarray(vals), jnp.asarray(lo), pre,
+                                   suf, block, window_blocks)
+    got, exact = np.asarray(got), np.asarray(exact)
+    assert exact.mean() > 0.5
+    d = ((queries[:, None].astype(np.float64)
+          - pts[None].astype(np.float64)) ** 2).sum(-1)
+    nn = d.argmin(1)
+    np.testing.assert_array_equal(got[exact], vals[nn[exact]])

@@ -120,8 +120,8 @@ def test_se3_max_update_trust_region_rejects_rogue_steps():
     node step larger than the association gate cannot be data-driven, so
     the solve must REJECT it outright (identity), not scale it — the
     512-cube cascade this pins: an un-gated solve flung a weak-data rim
-    node 3.9 m on frame 1 and node insertion then followed the rogue warp
-    (scripts/diag/diag_fusion_band.py)."""
+    node 3.9 m on frame 1 and node insertion then followed the rogue
+    warp."""
     rng = np.random.RandomState(7)
     wf, verts = _patch_scene(rng)
     # demand an absurd deformation: targets 2 m away
